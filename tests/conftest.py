@@ -26,6 +26,7 @@ import pytest
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: slow integration tests")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA card (skips without one)")
 
 
 @pytest.fixture

@@ -1,0 +1,108 @@
+"""The port stands alone: no JAX and nothing of gaussctrl_tpu at run time,
+and no silent CPU fallback when a CUDA device is asked for."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gaussctrl_tpu_torch
+from gaussctrl_tpu_torch.device import resolve_device
+from gaussctrl_tpu_torch.ops import flash_attention as fa
+from gaussctrl_tpu_torch.ops import launch_counts
+from gaussctrl_tpu_torch.ops import splat_blend as sb
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _all_modules():
+    pkg = gaussctrl_tpu_torch
+    return sorted(m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                        pkg.__name__ + "."))
+
+
+def test_package_imports_no_jax_or_reference_package():
+    """Import every module of the port in a fresh interpreter, then check
+    that neither jax nor any gaussctrl_tpu module was loaded."""
+    mods = _all_modules()
+    assert "gaussctrl_tpu_torch.ops.flash_attention" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'flax' or m.startswith('flax.')"
+            " or m == 'gaussctrl_tpu' or m.startswith('gaussctrl_tpu.')]\n"
+            "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names no JAX module and nothing of the JAX package."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        src = f.read()
+    for bad in ("import jax", "from jax", "import flax", "from flax",
+                "import gaussctrl_tpu\n", "import gaussctrl_tpu.",
+                "from gaussctrl_tpu ", "from gaussctrl_tpu."):
+        assert bad not in src, bad
+
+
+def test_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)        # the default is the card
+
+
+def test_pipeline_default_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from gaussctrl_tpu_torch.diffusion.config import SDConfig
+    from gaussctrl_tpu_torch.diffusion.sample import SDModels
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SDModels.create(SDConfig.tiny())
+
+
+@pytest.mark.parametrize("which", ["flash_attention_t", "cross_view_attention",
+                                   "splat_blend"])
+def test_wrappers_refuse_non_cpu_tensors_without_fallback(which):
+    """A tensor that is not on the CPU goes to the kernel or raises; it is
+    never handed to the plain version (meta tensors stand in for a device
+    the plain path would have to serve)."""
+    before = dict(launch_counts)
+    meta = dict(device="meta")
+    with pytest.raises((ValueError, RuntimeError)):
+        if which == "splat_blend":
+            i = torch.zeros(4, dtype=torch.int32, **meta)
+            f = torch.zeros(4, 2, **meta)
+            sb.blend(i, i, i, f, torch.zeros(4, 3, **meta),
+                     torch.zeros(4, 4, **meta), torch.zeros(4, **meta),
+                     torch.zeros(4, **meta), 2, 2)
+        else:
+            x = torch.zeros(4, 64, 32, dtype=torch.bfloat16, **meta)
+            fn = getattr(fa, which)
+            fn(x, x, x, 2) if which == "flash_attention_t" else fn(x, x, x, 2, 1, 0.6, 2)
+    assert launch_counts == before
+
+
+def test_plain_versions_are_used_on_cpu_without_counting():
+    """On CPU tensors the wrappers compute with the plain versions and leave
+    the launch counts alone."""
+    before = dict(launch_counts)
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(4, 40, 16)), dtype=torch.float32)
+    out = fa.cross_view_attention(q, q, q, 2, 2, 0.6, 2)
+    ref = fa.cross_view_attention_plain(q, q, q, 2, 2, 0.6, 2)
+    assert torch.equal(out, ref)
+    assert torch.equal(fa.flash_attention_t(q, q, q, 2), fa.attention_plain(q, q, q, 2))
+    assert launch_counts == before
