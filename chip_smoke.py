@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gaussctrl_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py                     # 8 views x 10 DDIM steps
-    python3 chip_smoke.py --views 40 --steps 20   # the reference protocol
+    python3 chip_smoke.py                     # 8 views x 10 DDIM steps, 100 re-opt steps
+    python3 chip_smoke.py --views 40 --steps 20 --reopt-steps 500
+                                              # the reference protocol
 
 Phases, each printing one JSON line with its wall time:
 
-  1. environment  card name and power limit (nvidia-smi), torch and CUDA;
-  2. build        the kernel library (one nvcc call over csrc/*.cu);
-  3. kernels      K1 (splat blend), K2 (inversion attention) and K3 (cross-
-                  view attention) held against their plain PyTorch versions
-                  on the card at the main path's shapes, with the tolerance
-                  stated, and timed beside their plain versions, one PyTorch
-                  library call where one computes the same function, and
-                  their bound at 989 TFLOP/s bf16 / 67 TFLOP/s fp32 /
-                  3.35 TB/s;
+  1. environment  card name and power limit (nvidia-smi), torch and CUDA,
+                  and whether PIL (the CLI's image writer) is installed;
+  2. build        the kernel library (one nvcc call over every csrc/*.cu,
+                  compiling them in parallel);
+  3. kernels      K1 (splat blend), K4 (its backward), K2 (inversion
+                  attention) and K3 (cross-view attention) held against
+                  their plain PyTorch versions on the card at the main
+                  path's shapes, with the tolerance stated, and timed beside
+                  their plain versions, one PyTorch library call where one
+                  computes the same function, and their bound at 989 TFLOP/s
+                  bf16 / 67 TFLOP/s fp32 / 3.35 TB/s;
   4. small        a tiny-config pipeline on the card against the same
                   pipeline on the CPU (plain versions), both bf16, with
                   each K2/K3 call on the card also held against its plain
                   version on its own inputs;
-  5. main path    render_reverse() then edit_images() at SD-1.5 width with
-                  seeded random weights in bf16 on a seeded random scene of
-                  200,000 gaussians: finite outputs of the right shapes and
-                  exact launch counts for every kernel.
+  5. train        a few re-optimisation steps of a tiny scene on the card
+                  against the CPU in float32 (loss and first-step
+                  gradients), each K4 call also held against its plain
+                  version on its own inputs;
+  6. main path    GaussCtrlPipeline.run(): render_reverse(), edit_images()
+                  and reoptimize() at SD-1.5 width with seeded random
+                  weights in bf16 on a seeded random scene of 200,000
+                  gaussians: finite outputs of the right shapes, finite
+                  re-optimisation losses and exact launch counts for every
+                  kernel.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero, and
@@ -67,6 +76,33 @@ GAUSSIANS, SIZE, WEIGHTS_SEED, REPS = 200_000, 512, 0, 20
 # H100 they read a relative RMS of 0.031 (z_T) and 0.038 (edited), held to
 # 0.05 and 0.06. The kernels' own share is held sharply in situ.
 SMALL_REL_TOL = dict(z_T=0.05, edited=0.06)
+# re-optimisation steps of the main path (the reference runs render_rate =
+# 500; --reopt-steps 500 gives that)
+REOPT_STEPS = 100
+# fp32 operations per (instance, pixel) pair that the function needs.
+# K1: sigma, alpha, the gates, the weight, ch = 4 channel sums, the
+# transmittance. K4 (ch = 4), counted from pass B of splat_blend_bwd.cu,
+# the one replay the VJP needs: dx, dy 2; sigma 9; exp(-sigma) 2; alpha_raw
+# and the 0.999 clamp 2; the keep gate and alpha 4; m and w 4; g.c 7;
+# q, prefix, S_i 3; T update 2 (replay 35); dL/dalpha with its gate 8;
+# g_sigma 2; xy 8; conic 8; colour 4; opacity 1 (gradient 31); the sum of
+# the 10 row values over the tile's pixels 10. Total 76. The kernel's pass
+# A replays 34 of them once more, which the bound does not count.
+OPS_PER_PAIR_FWD = 30
+OPS_PER_PAIR_BWD = 76
+# K4 rows held per group (xy, conic, colour, opacity) against the plain
+# backward on the same inputs: the largest error over the group's largest
+# |value| (fp32 sums over 256 pixels, and S_i = Q - prefix_i, in another
+# order; 1/(1 - alpha) reaches 1000 below the 0.999 gate). On an H100 the
+# worst group reads 6.2e-5 at 512x512.
+K4_SCALED_TOL = 1e-3
+# the tiny training run, card against CPU, both float32 (TF32 off): the
+# blend may stop at other instances on the two (K1 per tile and 256-
+# instance batch, the plain version per chunk of tiles), which moves T_fin
+# below 1e-4; losses at rtol 1e-5 and first-step gradients at 1e-4 of each
+# field's largest |value|. On an H100 they read 1.5e-7 and 4.8e-6.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_SCALED_TOL = 1e-4
 # the plain attention materialises [B, 8, T, T] float32 scores; K2's timing
 # batch is capped so that they fit beside the kernel's inputs
 K2_MAX_TIMED_BATCH = 8
@@ -152,34 +188,46 @@ def smoke_scene(n: int, device):
     return random_scene(g, n, sh_degree=3, extent=1.0, device=device)
 
 
-def check_k1(scene, cams, reps):
-    """K1 on one 512x512 view of the smoke scene against blend_plain."""
+def splat_inputs(scene, cams, ch: int = 4, logit_shift: float = 0.0):
+    """The blend's inputs for view 0 of the smoke scene, as render_rgbd
+    builds them: (args of `blend`, the binning). `logit_shift` raises every
+    opacity's logit (6 puts most opacities above 0.99)."""
     import importlib
     import torch
     from gaussctrl_tpu_torch.cameras.camera import view_matrix
-    from gaussctrl_tpu_torch.ops import splat_blend as sb
     from gaussctrl_tpu_torch.splat.project import project_gaussians
     from gaussctrl_tpu_torch.splat.sh import eval_sh
     rast = importlib.import_module("gaussctrl_tpu_torch.splat.rasterize")
 
     c2w = cams.c2w[0]
     W, H = cams.width, cams.height
-    opac = torch.sigmoid(scene.opacities[:, 0])
+    opac = torch.sigmoid(scene.opacities[:, 0] + logit_shift)
     proj = project_gaussians(scene.means, torch.exp(scene.scales), scene.quats,
                              view_matrix(c2w), cams.fx[0], cams.fy[0],
                              cams.cx[0], cams.cy[0], W, H, opacities=opac)
     dirs = scene.means - c2w[:3, 3][None]
     dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-8)
     rgb = torch.clamp_min(eval_sh(3, dirs, scene.colors) + 0.5, 0.0)
-    colors = torch.cat([rgb, proj.depths[:, None]], -1).contiguous()
+    colors = torch.cat([rgb, proj.depths[:, None]], -1)[:, :ch].contiguous()
     radii = torch.where(opac >= rast.ALPHA_THRESH, proj.radii,
                         torch.zeros_like(proj.radii))
     ntx, nty = (W + 15) // 16, (H + 15) // 16
-    cfg = rast.RasterConfig()
-    b = rast._bin_and_sort(proj.xys, proj.depths, radii, ntx, nty, cfg)
-    bg = torch.zeros(4, device=c2w.device)
+    b = rast._bin_and_sort(proj.xys, proj.depths, radii, ntx, nty,
+                           rast.RasterConfig())
+    bg = torch.zeros(ch, device=c2w.device)
     args = (b.gauss_idx, b.starts, b.ends, proj.xys.contiguous(),
             proj.conics.contiguous(), colors, opac.contiguous(), bg, ntx, nty)
+    return args, b
+
+
+def check_k1(scene, cams, reps):
+    """K1 on one 512x512 view of the smoke scene against blend_plain."""
+    import torch
+    from gaussctrl_tpu_torch.ops import splat_blend as sb
+
+    args, b = splat_inputs(scene, cams)
+    ntx, nty = args[-2:]
+    W, H = cams.width, cams.height
     tiles, alpha, done = sb.blend(*args, return_done=True)
     ref_tiles, ref_alpha = sb.blend_plain(*args)
     torch.cuda.synchronize()
@@ -190,8 +238,8 @@ def check_k1(scene, cams, reps):
     tol = 1e-3
     pairs = float(done.sum().item()) * 256
     used = int(b.ends[-1].item())
-    n = proj.xys.shape[0]
-    ch = colors.shape[1]
+    n = args[3].shape[0]
+    ch = args[5].shape[1]
     # each input read once (the used index range, the per-gaussian rows,
     # the ranges), each output written once (tiles ch + T per pixel)
     nbytes = (4 * used + 8 * ntx * nty + 4 * n * (2 + 3 + ch + 1)
@@ -203,11 +251,80 @@ def check_k1(scene, cams, reps):
                max_tile=int((b.ends - b.starts).max().item()),
                pairs_blended=pairs, max_abs_err=err, tol=tol, kernel_ms=ms,
                plain_ms=plain, library_ms=None,
-               **bound_fields(pairs * 30, PEAK_FP32, nbytes))
+               **bound_fields(pairs * OPS_PER_PAIR_FWD, PEAK_FP32, nbytes))
     emit(rec)
     if not err <= tol:
         raise AssertionError(f"K1 disagrees with its plain version: {err} > {tol}")
     return rec
+
+
+def k4_errors(rows, g_bg, ref_rows, ref_bg) -> dict:
+    """K4 against its plain version: per row group (xy, conic, colour,
+    opacity), the largest error over the group's largest |value|; the same
+    for g_bg; and the largest absolute error of the rows."""
+    ch = rows.shape[1] - 6
+    groups = dict(xy=(0, 2), conic=(2, 5), colour=(5, 5 + ch),
+                  opacity=(5 + ch, 6 + ch))
+
+    def scaled(got, ref):
+        return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+    out = {k: scaled(rows[:, lo:hi], ref_rows[:, lo:hi])
+           for k, (lo, hi) in groups.items()}
+    out["g_bg"] = scaled(g_bg, ref_bg)
+    out["max_abs_err"] = (rows - ref_rows).abs().max().item()
+    return out
+
+
+def check_k4(scene, cams, reps):
+    """K4 on one 512x512 view of the smoke scene against blend_bwd_plain
+    over the same n_done (from K1), with a seeded random cotangent: ch = 4
+    timed; ch = 3 (its other instantiation) and a near-opaque scene (where
+    alpha_raw passes the 0.999 gate) checked."""
+    import torch
+    from gaussctrl_tpu_torch.ops import splat_blend as sb
+    recs = []
+    for ch, shift in ((4, 0.0), (3, 0.0), (4, 6.0)):
+        args, b = splat_inputs(scene, cams, ch, shift)
+        ntx, nty = args[-2:]
+        _, _, done = sb.blend(*args, return_done=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(4)
+        T = ntx * nty
+        go = torch.rand((T, 256, ch), generator=gen, device=DEVICE) - 0.5
+        ga = torch.rand((T, 256), generator=gen, device=DEVICE) - 0.5
+        bwd_args = (args[0], args[1], done, *args[3:8], go, ga, ntx, nty)
+        rows, g_bg = sb.blend_bwd(*bwd_args)
+        ref_rows, ref_bg = sb.blend_bwd_plain(*bwd_args)
+        torch.cuda.synchronize()
+        errs = k4_errors(rows, g_bg, ref_rows, ref_bg)
+        rec = dict(phase="kernels", kernel="splat_blend_bwd",
+                   shape=[cams.height, cams.width, ch], logit_shift=shift,
+                   scaled_err=errs,
+                   scaled_tol=K4_SCALED_TOL,
+                   max_abs_err=errs.pop("max_abs_err"),
+                   rows_nonzero=int((rows.abs().sum(1) > 0).sum().item()))
+        if not recs:
+            pairs = float(done.sum().item()) * 256
+            used = int(b.ends[-1].item())
+            n = args[3].shape[0]
+            d = 6 + ch
+            # inputs read once: the used index range, the per-gaussian rows,
+            # starts and n_done, the cotangents; outputs: the rows and T_fin
+            nbytes = (4 * used + 8 * T + 4 * n * (2 + 3 + ch + 1)
+                      + 4 * T * 256 * (ch + 1) + 4 * used * d + 4 * T * 256)
+            rec.update(pairs_replayed=pairs, kernel_ms=cuda_ms(
+                lambda: sb.blend_bwd(*bwd_args), reps),
+                plain_ms=cuda_ms(lambda: sb.blend_bwd_plain(*bwd_args),
+                                 max(1, reps // 10)),
+                library_ms=None,
+                **bound_fields(pairs * OPS_PER_PAIR_BWD, PEAK_FP32, nbytes))
+        emit(rec)
+        recs.append(rec)
+    bad = [(r["shape"][2], r["logit_shift"], k, v) for r in recs
+           for k, v in r["scaled_err"].items() if not v <= K4_SCALED_TOL]
+    if bad:
+        raise AssertionError(f"K4 disagrees with its plain version: {bad}")
+    return recs[0]
 
 
 # Attention outputs are bf16 on both sides, and their size depends on the
@@ -426,7 +543,90 @@ def check_small():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path
+# phase 5: tiny re-optimisation, card against CPU
+# ---------------------------------------------------------------------------
+
+TRAIN_FIELDS = ("means", "scales", "quats", "opacities", "features_dc",
+                "features_rest")
+
+
+def train_run(device: str, steps: int):
+    """`steps` train_steps of a tiny 300-gaussian scene (SH 3, four 64x64
+    views, seeded smooth targets and backgrounds) on `device` in float32:
+    (per-step losses, the first step's gradients on the CPU)."""
+    import torch
+    import torch.nn.functional as F
+    from gaussctrl_tpu_torch.splat import trainer as tr
+    scene = smoke_scene(300, "cpu")
+    scene.means.mul_(0.5)
+    gen = torch.Generator().manual_seed(7)
+    targets = F.interpolate(torch.rand((4, 3, 8, 8), generator=gen),
+                            size=(64, 64), mode="nearest").permute(0, 2, 3, 1)
+    bgs = torch.rand((steps, 3), generator=gen)
+    scene = tr.trainable(type(scene)(**{k: getattr(scene, k).to(device)
+                                        for k in TRAIN_FIELDS}))
+    cams = orbit_cameras(4, 64, device, 2.5)
+    opt = tr.make_optimizer(scene)
+    targets, bgs = targets.to(device), bgs.to(device)
+    losses, grads = [], None
+    for i in range(steps):
+        v = i % len(cams)
+        m = tr.train_step(scene, opt, i, cams.c2w[v], cams.fx[v], cams.fy[v],
+                          cams.cx[v], cams.cy[v], targets[v], bgs[i], 64, 64, 3)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            grads = {k: getattr(scene, k).grad.detach().cpu().clone()
+                     for k in TRAIN_FIELDS}
+    return losses, grads
+
+
+def check_train(steps: int = 3):
+    """A few re-optimisation steps on the card (K1, K4) against the CPU
+    (plain versions), both float32; every K4 call on the card is also held
+    against its plain version on its own inputs."""
+    import importlib
+    rast = importlib.import_module("gaussctrl_tpu_torch.splat.rasterize")
+    from gaussctrl_tpu_torch.ops import splat_blend as sb
+    t0 = time.perf_counter()
+    cpu_losses, cpu_grads = train_run("cpu", steps)
+    in_situ = {"calls": 0}
+
+    def held(*args, **kw):
+        rows, g_bg = sb.blend_bwd(*args, **kw)
+        errs = k4_errors(rows, g_bg, *sb.blend_bwd_plain(*args, **kw))
+        in_situ["calls"] += 1
+        for k, v in errs.items():
+            in_situ[k] = max(in_situ.get(k, 0.0), v)
+        return rows, g_bg
+
+    saved = rast.blend_bwd
+    rast.blend_bwd = held
+    try:
+        card_losses, card_grads = train_run(DEVICE, steps)
+    finally:
+        rast.blend_bwd = saved
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    grad_scaled = {k: ((card_grads[k] - g).abs().max() / g.abs().max()).item()
+                   for k, g in cpu_grads.items()}
+    rec = dict(phase="train", seconds=time.perf_counter() - t0, steps=steps,
+               card_losses=card_losses, cpu_losses=cpu_losses,
+               loss_rel_err=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
+               grad_scaled_err=grad_scaled,
+               grad_scaled_tol=TRAIN_GRAD_SCALED_TOL, in_situ=in_situ,
+               in_situ_tol=K4_SCALED_TOL)
+    emit(rec)
+    situ_ok = in_situ["calls"] == steps and all(
+        v <= K4_SCALED_TOL for k, v in in_situ.items()
+        if k not in ("calls", "max_abs_err"))
+    if (not all(math.isfinite(x) for x in card_losses) or not situ_ok
+            or loss_rel > TRAIN_LOSS_RTOL
+            or any(v > TRAIN_GRAD_SCALED_TOL for v in grad_scaled.values())):
+        raise AssertionError(f"card training disagrees with the CPU's: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the main path
 # ---------------------------------------------------------------------------
 
 def main_path(args, card):
@@ -441,7 +641,8 @@ def main_path(args, card):
     cfg = GaussCtrlConfig(edit_prompt="a photo of a polar bear",
                           reverse_prompt="a photo of a bear statue",
                           guidance_scale=5.0, num_inference_steps=args.steps,
-                          chunk_size=CHUNK, ref_view_num=REFS)
+                          chunk_size=CHUNK, ref_view_num=REFS,
+                          render_rate=args.reopt_steps)
     pipe = GaussCtrlPipeline(cfg, scene, cams, sd_config=SDConfig.sd15(),
                              dtype=torch.bfloat16, device=DEVICE,
                              weights_seed=WEIGHTS_SEED)
@@ -455,33 +656,49 @@ def main_path(args, card):
     # chunks are counted from the views that are not references
     others = [i for i in range(V) if i not in pipe.ref_indices]
     n_chunks = -(-len(others) // cfg.chunk_size)
-    expected = {"splat_blend_fwd": V,
+    steps = args.reopt_steps
+    expected = {"splat_blend_fwd": V + steps,          # renders, re-opt steps
+                "splat_blend_bwd": steps,
                 "flash_attention_t": args.steps * n_self,   # one inversion batch
                 "cross_view_attention": args.steps * n_self * n_chunks}
+
+    # each stage of run() is timed to its end on the card
+    ends = {}
+    for stage in ("render_reverse", "edit_images", "reoptimize"):
+        def timed(*a, _fn=getattr(pipe, stage), _name=stage, **kw):
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            ends[_name] = time.perf_counter()
+            return out
+        setattr(pipe, stage, timed)
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t1 = time.perf_counter()
-    pipe.render_reverse()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    pipe.edit_images()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
+    metrics = pipe.run()
     counts = dict(launch_counts)
+    t2, t3, t4 = ends["render_reverse"], ends["edit_images"], ends["reoptimize"]
+    losses = metrics["loss_history"].float().cpu()
 
     s, H = pipe.sd_config.sample_size, SIZE
     shapes = dict(unedited=(V, H, H, 3), depths=(V, H, H, 1), z_T=(V, s, s, 4),
                   edited=(V, H, H, 3))
     finite = {k: bool(torch.isfinite(getattr(pipe, k)).all()) for k in shapes}
+    finite["reopt_losses"] = bool(torch.isfinite(losses).all()) and len(losses) == steps
+    finite["scene"] = all(bool(torch.isfinite(getattr(pipe.scene, k)).all())
+                          for k in TRAIN_FIELDS)
     rec = dict(phase="main_path", card=card, views=V, steps=args.steps,
                gaussians=GAUSSIANS, size=H, refs=pipe.ref_indices,
                edit_batches=n_chunks,
                chunk_size=cfg.chunk_size, setup_s=setup_s,
+               reopt_steps=steps,
                render_reverse_s=t2 - t1, edit_images_s=t3 - t2,
+               reoptimize_s=t4 - t3, reopt_s_per_step=(t4 - t3) / max(steps, 1),
+               reopt_loss_first10=losses[:10].tolist(),
+               reopt_loss_last10=losses[-10:].tolist(),
                render_reverse_views_per_s=V / (t2 - t1),
                edit_images_views_per_s=V / (t3 - t2),
-               views_per_s=V / (t3 - t1),
+               views_per_s=V / (t3 - t1), run_s=t4 - t1,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
                self_attention_layers={k: len(v) for k, v in layers.items()},
                launches=counts, expected_launches=expected, finite=finite,
@@ -503,6 +720,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--views", type=int, default=8)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--reopt-steps", type=int, default=REOPT_STEPS,
+                    help="re-optimisation steps (the reference runs 500)")
     ap.add_argument("--out", default="", help="directory for the full report")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -525,15 +744,18 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     card = f"{name}, {smi.split(',')[-1].strip()}"
     print(smi, flush=True)
+    import importlib.util
     emit(dict(phase="environment", nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, device_count=torch.cuda.device_count(),
+              pil=importlib.util.find_spec("PIL") is not None,
               seconds=time.perf_counter() - t_start))
 
     # 2. build
     t0 = time.perf_counter()
     _lib.library()
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              nvcc_seconds=_lib.build_seconds, library=_lib.library_path()))
+    build = dict(phase="build", seconds=time.perf_counter() - t0,
+                 nvcc_seconds=_lib.build_seconds, library=_lib.library_path())
+    emit(build)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "nvcc.log"), "w") as f:
@@ -548,6 +770,7 @@ def main() -> int:
     scene = smoke_scene(GAUSSIANS, DEVICE)
     cams = orbit_cameras(args.views, SIZE, DEVICE)
     k1 = check_k1(scene, cams, REPS)
+    k4 = check_k4(scene, cams, REPS)
     k2 = check_k2(min(args.views, K2_MAX_TIMED_BATCH), REPS)
     k3 = check_k3(REFS + CHUNK, REFS, REPS)
     del scene, cams
@@ -557,7 +780,10 @@ def main() -> int:
     # 4. tiny pipeline: card against CPU
     check_small()
 
-    # 5. the main path
+    # 5. tiny re-optimisation: card against CPU
+    train = check_train()
+
+    # 6. the main path
     mp = main_path(args, card)
 
     # per-kernel summary: K2/K3 times are per DDIM step of the main path
@@ -593,6 +819,13 @@ def main() -> int:
              max_abs_err=k1["max_abs_err"], ms=k1["kernel_ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
+        dict(name="splat_blend_bwd", route="cuda",
+             source="gaussctrl_tpu_torch/csrc/splat_blend_bwd.cu",
+             replaces="gaussctrl_tpu/ops/splat_blend.py:261",
+             launches=launches["splat_blend_bwd"],
+             max_abs_err=k4["max_abs_err"], ms=k4["kernel_ms"],
+             plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by=k4["bound_by"], library_ms=None),
         dict(name="flash_attention_t", route="cuda",
              source="gaussctrl_tpu_torch/csrc/attention.cu",
              replaces="gaussctrl_tpu/ops/flash_attention.py:137",
@@ -616,7 +849,8 @@ def main() -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(card=card, k1=k1, k2=k2, k3=k3, main_path=mp,
+            json.dump(dict(card=card, build=build, k1=k1, k4=k4, k2=k2, k3=k3,
+                           train=train, main_path=mp,
                            kernels=kernels, total_s=total_s),
                       f, indent=1)
     emit({"kernels": kernels})

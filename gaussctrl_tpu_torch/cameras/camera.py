@@ -28,6 +28,11 @@ class Cameras:
     def __len__(self):
         return self.c2w.shape[0]
 
+    def __getitem__(self, idx) -> "Cameras":
+        """A sub-batch (an index array or a slice keeps the batch axis)."""
+        return Cameras(self.c2w[idx], self.fx[idx], self.fy[idx],
+                       self.cx[idx], self.cy[idx], self.width, self.height)
+
     def to(self, device) -> "Cameras":
         return Cameras(self.c2w.to(device), self.fx.to(device),
                        self.fy.to(device), self.cx.to(device),

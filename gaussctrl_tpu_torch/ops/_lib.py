@@ -2,9 +2,11 @@
 
 All sources under `gaussctrl_tpu_torch/csrc/` are compiled by one `nvcc` call
 for `sm_90a` into one shared library with a plain C interface, which is
-loaded with `ctypes`. The build runs at first use and is keyed by a hash of
-the sources and flags, so a changed source rebuilds and an unchanged one is
-reused. The output directory (`gaussctrl_tpu_torch/_build/`) is git-ignored.
+loaded with `ctypes`. `--threads 0` lets that call compile the sources in
+parallel, one thread per CPU. The build runs at first use and is keyed by a
+hash of the sources and flags, so a changed source rebuilds and an unchanged
+one is reused. The output directory (`gaussctrl_tpu_torch/_build/`) is
+git-ignored.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
+              "--threads", "0"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "gc_splat_blend_fwd": [_P] * 10 + [_I, _I, _I, _P],
+    "gc_splat_blend_bwd": [_P] * 12 + [_I, _I, _I, _P],
     "gc_flash_attention": [_P] * 4 + [_I] * 5 + [_P],
     "gc_cross_view_attention": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
     "gc_supported_head_dim": [_I],

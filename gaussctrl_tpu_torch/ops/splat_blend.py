@@ -1,12 +1,23 @@
-"""Splat-blend forward, kernel K1, and its plain PyTorch version.
+"""Splat-blend forward (kernel K1) and backward (kernel K4), each beside its
+plain PyTorch version.
 
-Counterpart of `gaussctrl_tpu/ops/splat_blend.py` (forward only; the
-backward, K4, belongs to re-optimisation). The kernel is CUDA C++ in
-`csrc/splat_blend_fwd.cu`: one block per 16×16 tile reads its own
-[starts, ends) range of the depth-sorted `gauss_idx`. The plain version is
-the segmented blend of the JAX package's `splat/rasterize.py:_blend_tiles`.
-Both return (tiles [T, 256, ch] with the background composited,
-alpha [T, 256]), as `blend_pallas` does.
+Counterpart of `gaussctrl_tpu/ops/splat_blend.py`. Both kernels are CUDA C++
+in which one block per 16×16 tile reads its own [starts, ends) range of the
+depth-sorted `gauss_idx`:
+
+  K1 `blend`      (`csrc/splat_blend_fwd.cu`) returns (tiles [T, 256, ch]
+                  with the background composited, alpha [T, 256]), as
+                  `blend_pallas` does, and how many instances each tile
+                  blended before it saturated;
+  K4 `blend_bwd`  (`csrc/splat_blend_bwd.cu`) the VJP of K1 over exactly
+                  those instances: one row per sorted instance,
+                  [xy(2), conic(3), colour(ch), opacity(1)], in `gauss_idx`
+                  order, plus the background's cotangent.
+
+The plain versions are the segmented blend of the JAX package's
+`splat/rasterize.py:_blend_tiles` and its two-pass replay backward
+`_blend_bwd_instance_grads`. `splat/rasterize.py` sums the rows per gaussian
+(`reduce_by_slot`) inside the blend's `torch.autograd.Function`.
 """
 
 from __future__ import annotations
@@ -23,15 +34,16 @@ TILE = 16
 def blend_plain(gauss_idx, starts, ends, xys, conics, colors, opacities,
                 background, n_tiles_x: int, n_tiles_y: int,
                 tile_capacity: int = 768, tile_chunk: int = 128,
-                tile_size: int = TILE):
+                tile_size: int = TILE, return_done: bool = False):
     """Front-to-back compositing of every tile, `tile_capacity` instances
     per segment, tiles taken `tile_chunk` at a time in order of descending
-    occupancy; a chunk stops once all its pixels have T ≤ T_EPS."""
+    occupancy; a chunk stops once all its pixels have T ≤ T_EPS. With
+    `return_done` also the instances each tile blended [T] int32
+    (min(segments run × capacity, end − start)), as K1 returns them."""
     ts, cap = tile_size, tile_capacity
     n_tiles = n_tiles_x * n_tiles_y
     ch = colors.shape[-1]
     dev = xys.device
-    m_buf = gauss_idx.shape[0]
     gidx = gauss_idx.long()
     starts, ends = starts.long(), ends.long()
     pix = torch.arange(ts, dtype=torch.float32, device=dev) + 0.5
@@ -41,6 +53,7 @@ def blend_plain(gauss_idx, starts, ends, xys, conics, colors, opacities,
 
     out = torch.zeros((n_tiles, ts * ts, ch), dtype=torch.float32, device=dev)
     t_fin = torch.ones((n_tiles, ts * ts), dtype=torch.float32, device=dev)
+    done = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
     order = torch.argsort(starts - ends, stable=True)   # descending length
     for base in range(0, n_tiles, tile_chunk):
         tids = order[base:base + tile_chunk]
@@ -52,21 +65,15 @@ def blend_plain(gauss_idx, starts, ends, xys, conics, colors, opacities,
                           device=dev)
         t_run = torch.ones((tids.shape[0], ts * ts), dtype=torch.float32,
                            device=dev)
+        n_run = 0
         for s in range(n_seg):
-            if float(t_run.max()) <= T_EPS:
+            if float(t_run.detach().max()) <= T_EPS:
                 break
-            pos = start[:, None] + s * cap + k[None, :]            # [G, C]
-            live = pos < end[:, None]
-            gi = gidx[pos.clamp_max(m_buf - 1)]
-            g_xy, g_conic = xys[gi], conics[gi]
-            g_color, g_op = colors[gi], opacities[gi]
-            dx = g_xy[:, :, 0:1] - px[:, None, :]                   # [G, C, P]
-            dy = g_xy[:, :, 1:2] - py[:, None, :]
-            a, b, c = g_conic[:, :, 0:1], g_conic[:, :, 1:2], g_conic[:, :, 2:3]
-            sigma = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
-            alpha_c = torch.clamp_max(g_op[:, :, None] * torch.exp(-sigma), 0.999)
-            cond = (sigma >= 0) & (alpha_c >= ALPHA_THRESH) & live[:, :, None]
-            alpha = torch.where(cond, alpha_c, torch.zeros_like(alpha_c))
+            n_run += 1
+            pos = start[:, None] + s * cap + k[None, :]             # [G, C]
+            alpha, aux = _segment(gidx, xys, conics, colors, opacities, pos,
+                                  pos < end[:, None], px, py)
+            g_color = aux["g_color"]
             trans = torch.cumprod(1.0 - alpha, dim=1)               # inclusive
             before = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], 1)
             t_before = t_run[:, None, :] * before
@@ -75,21 +82,132 @@ def blend_plain(gauss_idx, starts, ends, xys, conics, colors, opacities,
             t_run = t_run * trans[:, -1, :]
         out[tids] = acc
         t_fin[tids] = t_run
-    return out + t_fin[:, :, None] * background[None, None, :], 1.0 - t_fin
+        done[tids] = (end - start).clamp_max(n_run * cap).int()
+    res = (out + t_fin[:, :, None] * background[None, None, :], 1.0 - t_fin)
+    return (*res, done) if return_done else res
+
+
+def _segment(gidx, xys, conics, colors, opacities, pos, live, px, py):
+    """One capacity segment of a tile chunk: (alpha [G,C,P], aux), the
+    gated alphas and what the backward reads of them (`_segment_alpha`)."""
+    gi = gidx[pos.clamp_max(gidx.shape[0] - 1)]
+    g_xy, g_conic = xys[gi], conics[gi]
+    dx = g_xy[:, :, 0:1] - px[:, None, :]                           # [G, C, P]
+    dy = g_xy[:, :, 1:2] - py[:, None, :]
+    a, b, c = g_conic[:, :, 0:1], g_conic[:, :, 1:2], g_conic[:, :, 2:3]
+    sigma = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
+    e_sig = torch.exp(-sigma)
+    araw = opacities[gi][:, :, None] * e_sig
+    alpha_c = torch.clamp_max(araw, 0.999)
+    cond = (sigma >= 0) & (alpha_c >= ALPHA_THRESH) & live[:, :, None]
+    alpha = torch.where(cond, alpha_c, torch.zeros_like(alpha_c))
+    return alpha, dict(g_color=colors[gi], dx=dx, dy=dy, a=a, b=b, c=c,
+                       e_sig=e_sig, araw=araw, cond=cond)
+
+
+def blend_bwd_plain(gauss_idx, starts, n_done, xys, conics, colors,
+                    opacities, background, g_tiles, g_alpha, n_tiles_x: int,
+                    n_tiles_y: int, tile_capacity: int = 768,
+                    tile_chunk: int = 128):
+    """The VJP of the blend as per-instance rows, by two forward replays
+    over each tile's first `n_done` [T] instances, where the forward
+    (`blend(..., return_done=True)`) stopped.
+
+    For out_p = Σ_i w_i c_i + T_fin·bg, w_i = α_i T_i m_i, m_i = [T_i > 1e-4]:
+      ∂L/∂α_i = (g·c_i) T_i m_i − [S_i + (g·bg − g_A)·T_fin] / (1 − α_i),
+      S_i = Σ_{j>i} (g·c_j) w_j,
+    gated to α_raw < 0.999 where α is kept. Pass A accumulates the total
+    Q = Σ_j (g·c_j) w_j and T_fin; pass B replays with the running prefix,
+    so S_i = Q − prefix_i. Returns (rows [M, 5+ch+1] in `gauss_idx` order,
+    zero where no instance was blended; g_bg [ch])."""
+    ts, cap = TILE, tile_capacity
+    n_tiles = n_tiles_x * n_tiles_y
+    ch = colors.shape[-1]
+    d = 5 + ch + 1
+    dev = xys.device
+    m_buf = gauss_idx.shape[0]
+    gidx = gauss_idx.long()
+    starts = starts.long()
+    ends = starts + n_done.long()
+    pix = torch.arange(ts, dtype=torch.float32, device=dev) + 0.5
+    pix_x, pix_y = pix.repeat(ts), pix.repeat_interleave(ts)
+    k = torch.arange(cap, device=dev)
+    g_tiles = g_tiles.float()
+    g_alpha = g_alpha.float()
+    bg = background.to(dev, torch.float32)
+
+    rows = torch.zeros((m_buf + cap, d), dtype=torch.float32, device=dev)
+    g_bg = torch.zeros((ch,), dtype=torch.float32, device=dev)
+    order = torch.argsort(starts - ends, stable=True)   # descending length
+    for base in range(0, n_tiles, tile_chunk):
+        tids = order[base:base + tile_chunk]
+        start, end = starts[tids], ends[tids]
+        px = ((tids % n_tiles_x) * ts).float()[:, None] + pix_x[None, :]
+        py = ((tids // n_tiles_x) * ts).float()[:, None] + pix_y[None, :]
+        go, g_a = g_tiles[tids], g_alpha[tids]                      # [G,P,ch]
+        gbg = go @ bg                                               # [G, P]
+        n_seg = int(((end - start).max() + cap - 1) // cap)
+
+        def replay(s, t_run):
+            pos = start[:, None] + s * cap + k[None, :]             # [G, C]
+            alpha, aux = _segment(gidx, xys, conics, colors, opacities,
+                                  pos, pos < end[:, None], px, py)
+            trans = torch.cumprod(1.0 - alpha, dim=1)
+            before = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], 1)
+            t_before = t_run[:, None, :] * before
+            m = (t_before > T_EPS).float()
+            gc = torch.einsum("gpk,gck->gcp", go, aux["g_color"])
+            return pos, alpha, aux, t_before, m, alpha * t_before * m, gc, trans
+
+        # pass A: the per-pixel total Q and the final transmittance
+        t_run = torch.ones((tids.shape[0], ts * ts), device=dev)
+        q_all = torch.zeros_like(t_run)
+        for s in range(n_seg):
+            *_, w, gc, trans = replay(s, t_run)
+            q_all = q_all + (gc * w).sum(1)
+            t_run = t_run * trans[:, -1, :]
+        t_final = t_run
+        gterm = (gbg - g_a) * t_final                               # [G, P]
+
+        # pass B: the replay with the running prefix emits each row
+        t_run = torch.ones_like(t_final)
+        q_pre = torch.zeros_like(t_final)
+        for s in range(n_seg):
+            pos, alpha, aux, t_before, m, w, gc, trans = replay(s, t_run)
+            q = gc * w
+            s_after = q_all[:, None, :] - q_pre[:, None, :] - torch.cumsum(q, 1)
+            ga = gc * t_before * m - (s_after + gterm[:, None, :]) / (1.0 - alpha)
+            ga = torch.where(aux["cond"] & (aux["araw"] < 0.999), ga,
+                             torch.zeros_like(ga))
+            a, b, c_, dx, dy = aux["a"], aux["b"], aux["c"], aux["dx"], aux["dy"]
+            g_sigma = -ga * alpha
+            inst = torch.cat([
+                (g_sigma * (a * dx + b * dy)).sum(-1, keepdim=True),
+                (g_sigma * (c_ * dy + b * dx)).sum(-1, keepdim=True),
+                (g_sigma * 0.5 * dx * dx).sum(-1, keepdim=True),
+                (g_sigma * dx * dy).sum(-1, keepdim=True),
+                (g_sigma * 0.5 * dy * dy).sum(-1, keepdim=True),
+                torch.einsum("gcp,gpk->gck", w, go),
+                (ga * aux["e_sig"]).sum(-1, keepdim=True)], dim=-1)  # [G,C,d]
+            ok = pos < end[:, None]
+            rows[pos[ok]] = inst[ok]
+            q_pre = q_pre + q.sum(1)
+            t_run = t_run * trans[:, -1, :]
+        g_bg = g_bg + torch.einsum("gp,gpk->k", t_final, go)
+    return rows[:m_buf], g_bg
 
 
 def blend(gauss_idx, starts, ends, xys, conics, colors, opacities, background,
           n_tiles_x: int, n_tiles_y: int, tile_capacity: int = 768,
           tile_chunk: int = 128, return_done: bool = False):
     """K1. Returns (tiles [T,256,ch], alpha [T,256]) and, with
-    `return_done` on the card, the instances each tile blended [T].
+    `return_done`, the instances each tile blended [T] int32.
 
     CPU tensors take `blend_plain`; CUDA tensors launch the kernel."""
     if xys.device.type == "cpu":
-        out = blend_plain(gauss_idx, starts, ends, xys, conics, colors,
-                          opacities, background, n_tiles_x, n_tiles_y,
-                          tile_capacity, tile_chunk)
-        return (*out, None) if return_done else out
+        return blend_plain(gauss_idx, starts, ends, xys, conics, colors,
+                           opacities, background, n_tiles_x, n_tiles_y,
+                           tile_capacity, tile_chunk, return_done=return_done)
     n_tiles = n_tiles_x * n_tiles_y
     ch = colors.shape[-1]
     ins = dict(gauss_idx=(gauss_idx, torch.int32), starts=(starts, torch.int32),
@@ -121,3 +239,53 @@ def blend(gauss_idx, starts, ends, xys, conics, colors, opacities, background,
     tiles = out + t_fin[:, :, None] * background.to(dev, torch.float32)[None, None, :]
     res = (tiles, 1.0 - t_fin)
     return (*res, done) if return_done else res
+
+
+def blend_bwd(gauss_idx, starts, n_done, xys, conics, colors, opacities,
+              background, g_tiles, g_alpha, n_tiles_x: int, n_tiles_y: int):
+    """K4. The VJP of `blend` as (rows [M, 5+ch+1], g_bg [ch]) over each
+    tile's first `n_done` [T] instances, the count that `blend` returned;
+    see `blend_bwd_plain`.
+
+    CPU tensors take `blend_bwd_plain`; CUDA tensors launch the kernel."""
+    if xys.device.type == "cpu":
+        return blend_bwd_plain(gauss_idx, starts, n_done, xys, conics, colors,
+                               opacities, background, g_tiles, g_alpha,
+                               n_tiles_x, n_tiles_y)
+    n_tiles = n_tiles_x * n_tiles_y
+    ch = colors.shape[-1]
+    n = xys.shape[0]
+    ins = dict(gauss_idx=(gauss_idx, torch.int32), starts=(starts, torch.int32),
+               n_done=(n_done, torch.int32), xys=(xys, torch.float32),
+               conics=(conics, torch.float32), colors=(colors, torch.float32),
+               opacities=(opacities, torch.float32),
+               g_tiles=(g_tiles, torch.float32),
+               g_alpha=(g_alpha, torch.float32),
+               background=(background, torch.float32))
+    for name, (t, dt) in ins.items():
+        if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"splat_blend_bwd: {name} must be a contiguous "
+                             f"{dt} CUDA tensor, got {t.dtype} on {t.device}")
+    if (xys.shape != (n, 2) or conics.shape != (n, 3) or colors.shape != (n, ch)
+            or opacities.shape != (n,) or starts.shape != (n_tiles,)
+            or n_done.shape != (n_tiles,) or ch not in (3, 4)
+            or g_tiles.shape != (n_tiles, TILE * TILE, ch)
+            or g_alpha.shape != (n_tiles, TILE * TILE)
+            or background.shape != (ch,)):
+        raise ValueError("splat_blend_bwd: expected xys [N,2], conics [N,3], "
+                         "colors [N,3|4], opacities [N], starts/n_done "
+                         "[tiles], g_tiles [tiles,256,ch], g_alpha "
+                         "[tiles,256], background [ch]")
+    dev = xys.device
+    rows = torch.zeros((gauss_idx.shape[0], 5 + ch + 1), dtype=torch.float32,
+                       device=dev)
+    t_fin = torch.empty((n_tiles, TILE * TILE), dtype=torch.float32, device=dev)
+    err = _lib.library().gc_splat_blend_bwd(
+        gauss_idx.data_ptr(), starts.data_ptr(), n_done.data_ptr(),
+        xys.data_ptr(), conics.data_ptr(), colors.data_ptr(),
+        opacities.data_ptr(), g_tiles.data_ptr(), g_alpha.data_ptr(),
+        background.data_ptr(), rows.data_ptr(), t_fin.data_ptr(),
+        n_tiles, n_tiles_x, ch, torch.cuda.current_stream(dev).cuda_stream)
+    _lib.check(err, "splat_blend_bwd")
+    launch_counts["splat_blend_bwd"] += 1
+    return rows, torch.einsum("tp,tpk->k", t_fin, g_tiles)

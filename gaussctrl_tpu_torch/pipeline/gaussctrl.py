@@ -1,7 +1,7 @@
-"""The GaussCtrl editing method: render + invert, then the cross-view edit.
+"""The GaussCtrl editing method: render + invert → cross-view edit →
+re-optimise.
 
-Counterpart of `gaussctrl_tpu/pipeline/gaussctrl.py` (stages 1 and 2;
-re-optimisation belongs to a later slice):
+Counterpart of `gaussctrl_tpu/pipeline/gaussctrl.py`:
 
   render_reverse  renders every view's RGB and depth (kernel K1 per view on
                   the card), VAE-encodes the renders and DDIM-inverts them
@@ -14,6 +14,13 @@ re-optimisation belongs to a later slice):
                   (`chunk_size` = 0); then VAE-decodes and composites under
                   the masks (all ones: text-prompted segmentation is not
                   part of this port yet).
+  reoptimize      `render_rate` single-view L1 + SSIM steps of the scene
+                  against the edits (`splat/trainer.py`; kernels K1 and K4
+                  on the card).
+
+The diffusion stack runs at the camera size rounded up to its
+divisibility (64 for SD-1.5): views are resized into and out of it with
+`resize_bilinear`, which is `jax.image.resize`'s antialiased bilinear.
 
 Prompt handling and the reference-view draw match the reference pipeline.
 Arrays keep the JAX package's NHWC layout: unedited [V,H,W,3], depths
@@ -28,6 +35,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gaussctrl_tpu_torch.cameras.camera import Cameras
 from gaussctrl_tpu_torch.device import resolve_device
@@ -44,6 +52,7 @@ from gaussctrl_tpu_torch.diffusion.sample import (SDModels, denoise,
 from gaussctrl_tpu_torch.splat.rasterize import RasterConfig
 from gaussctrl_tpu_torch.splat.render import render_rgbd
 from gaussctrl_tpu_torch.splat.scene import GaussianScene
+from gaussctrl_tpu_torch.splat.trainer import TrainConfig, reoptimize
 
 
 @dataclasses.dataclass
@@ -73,6 +82,18 @@ def depth_to_disparity(depth: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     m = disp.amax(dim=(1, 2, 3), keepdim=True)
     disp = disp / torch.clamp_min(m, eps)
     return disp.repeat(1, 1, 1, 3)
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Resize [B, H, W, C] to [B, height, width, C] as `jax.image.resize`
+    with "bilinear" does: half-pixel centres, and a triangle kernel widened
+    by the scale when downsampling (antialias). Computed in float32 and
+    returned in x's dtype."""
+    if tuple(x.shape[1:3]) == (height, width):
+        return x
+    y = F.interpolate(x.float().permute(0, 3, 1, 2), size=(height, width),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def select_ref_views(num_views: int, ref_view_num: int,
@@ -106,12 +127,6 @@ class GaussCtrlPipeline:
         self.cameras = cameras.to(self.device)
         self.raster_cfg = raster_cfg
         self.sd_config = sd_config or SDConfig.sd15()
-        div = 8 * 2 ** (len(self.sd_config.unet.block_out_channels) - 1)
-        if cameras.height % div or cameras.width % div:
-            raise ValueError(
-                f"camera size {cameras.width}x{cameras.height} is not a "
-                f"multiple of {div}; resizing into the diffusion stack is "
-                f"not ported yet")
         if config.diffusion_ckpt or config.controlnet_ckpt:
             raise NotImplementedError("loading diffusers checkpoints is not "
                                       "ported yet; pass sd_params or none")
@@ -134,6 +149,59 @@ class GaussCtrlPipeline:
         self.z_T: Optional[torch.Tensor] = None        # [V,h,w,4]
         self.masks: Optional[torch.Tensor] = None      # [V,H,W,1]
         self.edited: Optional[torch.Tensor] = None     # [V,H,W,3]
+
+    def _diffusion_hw(self) -> tuple[int, int]:
+        """The camera size rounded up to the diffusion stack's divisibility:
+        the VAE's 8× times the UNet's 2^(levels − 1) (64 for SD-1.5)."""
+        div = 8 * 2 ** (len(self.sd_config.unet.block_out_channels) - 1)
+        h, w = self.cameras.height, self.cameras.width
+        return -(-h // div) * div, -(-w // div) * div
+
+    def _to_diffusion_res(self, x: torch.Tensor) -> torch.Tensor:
+        return resize_bilinear(x, *self._diffusion_hw())
+
+    def _from_diffusion_res(self, x: torch.Tensor) -> torch.Tensor:
+        return resize_bilinear(x, self.cameras.height, self.cameras.width)
+
+    def load_artifacts(self, train_data) -> bool:
+        """Adopt precomputed edit artifacts (the resume path): each item of
+        `train_data` holds unedited_image, depth_image ([1,H,W] or [H,W,1])
+        and z_0_image ([(1,)4,h,w] or [h,w,4]), and optionally mask_image.
+        Returns True when every view is covered, so that render_reverse()
+        can be skipped."""
+        needed = ("unedited_image", "depth_image", "z_0_image")
+        if not train_data or not all(all(k in d for k in needed)
+                                     for d in train_data):
+            return False
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+        def fix_depth(x):
+            x = t(x)
+            if x.ndim == 3 and x.shape[0] == 1:
+                x = x[0]
+            return x if x.ndim == 3 else x[..., None]
+
+        def fix_z0(x):
+            x = t(x)
+            if x.ndim == 4:
+                x = x[0]
+            if x.shape[0] == 4 and x.shape[-1] != 4:
+                x = x.permute(1, 2, 0)
+            return x
+
+        self.unedited = torch.stack([t(d["unedited_image"]) for d in train_data])
+        self.depths = torch.stack([fix_depth(d["depth_image"]) for d in train_data])
+        self.z_T = torch.stack([fix_z0(d["z_0_image"]) for d in train_data])
+        if all("mask_image" in d for d in train_data):
+            m = torch.stack([t(d["mask_image"]) for d in train_data])
+            self.masks = m if m.ndim == 4 else m[..., None]
+        else:
+            self.masks = torch.ones(self.unedited.shape[:3] + (1,),
+                                    device=self.device)
+        self.disparity = depth_to_disparity(self.depths)
+        return True
 
     def _ctx(self, prompt: str, batch: int) -> torch.Tensor:
         if prompt not in self._ctx_cache:
@@ -163,7 +231,8 @@ class GaussCtrlPipeline:
         self.disparity = depth_to_disparity(self.depths)
 
         bs = max(1, min(cfg.render_batch, V))
-        z0 = torch.cat([vae_encode(self.models, self.unedited[lo:lo + bs])
+        z0 = torch.cat([vae_encode(self.models,
+                                   self._to_diffusion_res(self.unedited[lo:lo + bs]))
                         for lo in range(0, V, bs)])
         reverse = cfg.reverse_prompt + POSITIVE_SUFFIX
         proc = FlashSelfAttnProcessor()
@@ -172,7 +241,8 @@ class GaussCtrlPipeline:
         for lo in range(0, V, ibs):
             hi = min(lo + ibs, V)
             zs.append(invert(self.models, self.sched, z0[lo:hi],
-                             self._ctx(reverse, hi - lo), self.disparity[lo:hi],
+                             self._ctx(reverse, hi - lo),
+                             self._to_diffusion_res(self.disparity[lo:hi]),
                              cfg.num_inference_steps, cfg.conditioning_scale,
                              easyinv_rho=cfg.easyinv_rho,
                              unet_processor=proc, controlnet_processor=proc))
@@ -205,20 +275,22 @@ class GaussCtrlPipeline:
                                                       groups),
                 controlnet_processor=CrossViewAttnProcessor(R, 0.0, groups))
 
+        # the ControlNet hint follows the latent geometry
+        disparity = self._to_diffusion_res(self.disparity)
         edited: List[Optional[torch.Tensor]] = [None] * V
         if cfg.chunk_size <= 0:
             order = refs + others
-            out = run_batch(self.z_T[order], self.disparity[order])
+            out = run_batch(self.z_T[order], disparity[order])
             for pos, i in enumerate(order):
                 edited[i] = out[pos]
             if log_fn:
                 log_fn(f"edited all {V} views in one batch")
         else:
-            ref_z, ref_disp = self.z_T[refs], self.disparity[refs]
+            ref_z, ref_disp = self.z_T[refs], disparity[refs]
             for lo in range(0, len(others), cfg.chunk_size):
                 chunk = others[lo:lo + cfg.chunk_size]
                 out = run_batch(torch.cat([ref_z, self.z_T[chunk]]),
-                                torch.cat([ref_disp, self.disparity[chunk]]))
+                                torch.cat([ref_disp, disparity[chunk]]))
                 for pos, i in enumerate(chunk):
                     edited[i] = out[R + pos]
                 if lo == 0:            # the refs' outputs from the first chunk
@@ -227,7 +299,30 @@ class GaussCtrlPipeline:
                 if log_fn:
                     log_fn(f"edited chunk {chunk}")
         lat = torch.stack(edited)
-        imgs = vae_decode(self.models, lat)
+        imgs = self._from_diffusion_res(vae_decode(self.models, lat))
         m = self.masks
         self.edited = m * imgs + (1.0 - m) * self.unedited
         return self
+
+    # -- stage 3: re-optimisation -------------------------------------------
+    def reoptimize(self, num_steps: Optional[int] = None,
+                   train_cfg: TrainConfig = TrainConfig(), log_fn=None,
+                   ckpt_every: int = 0, ckpt_fn=None):
+        """`render_rate` (or `num_steps`) steps against the edits; the
+        scene is replaced by the re-optimised one. Returns the metrics."""
+        assert self.edited is not None, "run edit_images() first"
+        steps = num_steps if num_steps is not None else self.config.render_rate
+        self.scene, metrics = reoptimize(
+            self.scene, self.cameras, self.edited.float(), steps,
+            seed=self.config.seed, raster_cfg=self.raster_cfg,
+            train_cfg=train_cfg, log_fn=log_fn, ckpt_every=ckpt_every,
+            ckpt_fn=ckpt_fn)
+        return metrics
+
+    def run(self, log_fn=None, train_cfg: TrainConfig = TrainConfig()):
+        """The whole edit: render_reverse → edit_images → reoptimize."""
+        self.render_reverse(log_fn)
+        self.edit_images(log_fn)
+        step_log = None if log_fn is None else (
+            lambda step, m: log_fn(f"re-opt step {step}: {m}"))
+        return self.reoptimize(train_cfg=train_cfg, log_fn=step_log)

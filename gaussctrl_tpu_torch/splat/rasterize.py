@@ -1,4 +1,4 @@
-"""Tile-binned gaussian rasterization (forward).
+"""Tile-binned gaussian rasterization, differentiable through the blend.
 
 Counterpart of `gaussctrl_tpu/splat/rasterize.py`, with the same static
 budgets so that the binning comes out identical:
@@ -10,8 +10,13 @@ budgets so that the binning comes out identical:
             the JAX package packs them in uint32, the port in int64 with the
             same order, and the stable sort breaks ties as JAX's does;
   3. RANGE  per-tile [start, end) by a left binary search;
-  4. BLEND  kernel K1 (`ops/splat_blend.blend`) on the card, its plain
-            segmented version on the CPU.
+  4. BLEND  a `torch.autograd.Function` (`_Blend`): forward kernel K1
+            (`ops/splat_blend.blend`) on the card, its plain segmented
+            version on the CPU; backward kernel K4
+            (`ops/splat_blend.blend_bwd`) on the card, the plain two-pass
+            replay on the CPU, then `reduce_by_slot` sums the per-instance
+            rows per gaussian. Gradients reach xys, conics, colors,
+            opacities and the background; the binning carries none.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from gaussctrl_tpu_torch.ops.splat_blend import ALPHA_THRESH, blend
+from gaussctrl_tpu_torch.ops.splat_blend import ALPHA_THRESH, blend, blend_bwd
 
 _SENTINEL = 0xFFFFFFFF
 
@@ -145,6 +150,67 @@ def _bin_and_sort(xys, depths, radii, n_tiles_x, n_tiles_y,
                   lmap=lmap, lvalid=lvalid)
 
 
+def reduce_by_slot(rows, slot_of_row, valid, binned: Binned, n: int,
+                   k2s: int, k2L: int):
+    """Per-gaussian sums [n, d] of per-instance rows [M, d] without
+    re-sorting: every sorted row is a candidate-grid slot, gaussian g's
+    small-class slots are g·k2s … g·k2s + k2s − 1 and the large-class ranks
+    go through `binned.lmap`, so the inverse of the bin sort is one scatter
+    of arange and the windows collapse by a gather and a reshape-sum (the
+    same order of sums as the JAX package)."""
+    m, d = rows.shape
+    dev = rows.device
+    cap_l = binned.lmap.shape[0]
+    total_slots = n * k2s + cap_l * k2L
+    ar = torch.arange(m, device=dev)
+    # invalid rows go to a dropped slot past the end
+    tgt = torch.where(valid, slot_of_row.long(), torch.full_like(ar, total_slots))
+    row_of_slot = torch.full((total_slots + 1,), m, dtype=torch.long, device=dev)
+    row_of_slot[tgt] = ar
+    rows_p = torch.cat([rows, rows.new_zeros((1, d))])
+    per_slot = rows_p[row_of_slot[:total_slots]]                      # [S, d]
+    out = per_slot[: n * k2s].reshape(n, k2s, d).sum(1)
+    if cap_l > 1:
+        lsum = per_slot[n * k2s:].reshape(cap_l, k2L, d).sum(1)
+        lsum = torch.where(binned.lvalid[:, None], lsum, torch.zeros_like(lsum))
+        out = out.index_add(0, binned.lmap, lsum)
+    return out
+
+
+class _Blend(torch.autograd.Function):
+    """The blend with its VJP: K1/K4 on the card, the plain versions on the
+    CPU (`ops/splat_blend`), rows summed per gaussian by `reduce_by_slot`."""
+
+    @staticmethod
+    def forward(ctx, xys, conics, colors, opacities, background, binned,
+                n_tiles_x, n_tiles_y, cfg):
+        tiles, alpha, done = blend(
+            binned.gauss_idx, binned.starts, binned.ends, xys, conics, colors,
+            opacities, background, n_tiles_x, n_tiles_y, cfg.tile_capacity,
+            cfg.tile_chunk, return_done=True)
+        ctx.save_for_backward(xys, conics, colors, opacities, background)
+        ctx.binned, ctx.done, ctx.cfg = binned, done, cfg
+        ctx.grid = (n_tiles_x, n_tiles_y)
+        return tiles, alpha
+
+    @staticmethod
+    def backward(ctx, g_tiles, g_alpha):
+        xys, conics, colors, opacities, background = ctx.saved_tensors
+        b, cfg = ctx.binned, ctx.cfg
+        n, ch = xys.shape[0], colors.shape[-1]
+        rows, g_bg = blend_bwd(
+            b.gauss_idx, b.starts, ctx.done, xys, conics, colors, opacities,
+            background.float().contiguous(), g_tiles.float().contiguous(),
+            g_alpha.float().contiguous(), *ctx.grid)
+        ksx = min(cfg.small_tiles_x, cfg.max_tiles_x)
+        ksy = min(cfg.small_tiles_y, cfg.max_tiles_y)
+        valid = torch.arange(rows.shape[0], device=rows.device) < b.ends[-1]
+        g = reduce_by_slot(rows, b.slot_idx, valid, b, n, ksx * ksy,
+                           cfg.max_tiles_x * cfg.max_tiles_y)
+        return (g[:, 0:2], g[:, 2:5], g[:, 5:5 + ch], g[:, 5 + ch],
+                g_bg.to(background.dtype), None, None, None, None)
+
+
 def _tiles_to_image(tiles, n_tiles_x, n_tiles_y, height, width, ts):
     """[T, ts·ts(, ch)] tile-major → [H, W(, ch)] row-major image."""
     rest = tiles.shape[2:]
@@ -167,10 +233,9 @@ def rasterize(xys, depths, radii, conics, colors, opacities, background,
     radii = torch.where(opacities.detach() >= ALPHA_THRESH, radii,
                         torch.zeros_like(radii))
     binned = _bin_and_sort(xys, depths, radii, n_tiles_x, n_tiles_y, cfg)
-    tiles, tile_alpha = blend(
-        binned.gauss_idx, binned.starts, binned.ends, xys.contiguous(),
-        conics.contiguous(), colors.contiguous(), opacities.contiguous(),
-        background, n_tiles_x, n_tiles_y, cfg.tile_capacity, cfg.tile_chunk)
+    tiles, tile_alpha = _Blend.apply(
+        xys.contiguous(), conics.contiguous(), colors.contiguous(),
+        opacities.contiguous(), background, binned, n_tiles_x, n_tiles_y, cfg)
     img = _tiles_to_image(tiles, n_tiles_x, n_tiles_y, height, width, ts)
     alpha = _tiles_to_image(tile_alpha, n_tiles_x, n_tiles_y, height, width, ts)
     if return_stats:

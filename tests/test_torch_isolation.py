@@ -74,7 +74,7 @@ def test_pipeline_default_device_raises_without_card():
 
 
 @pytest.mark.parametrize("which", ["flash_attention_t", "cross_view_attention",
-                                   "splat_blend"])
+                                   "splat_blend", "splat_blend_bwd"])
 def test_wrappers_refuse_non_cpu_tensors_without_fallback(which):
     """A tensor that is not on the CPU goes to the kernel or raises; it is
     never handed to the plain version (meta tensors stand in for a device
@@ -88,6 +88,13 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback(which):
             sb.blend(i, i, i, f, torch.zeros(4, 3, **meta),
                      torch.zeros(4, 4, **meta), torch.zeros(4, **meta),
                      torch.zeros(4, **meta), 2, 2)
+        elif which == "splat_blend_bwd":
+            i = torch.zeros(4, dtype=torch.int32, **meta)
+            sb.blend_bwd(i, i, i, torch.zeros(4, 2, **meta),
+                         torch.zeros(4, 3, **meta), torch.zeros(4, 4, **meta),
+                         torch.zeros(4, **meta), torch.zeros(4, **meta),
+                         torch.zeros(4, 256, 4, **meta),
+                         torch.zeros(4, 256, **meta), 2, 2)
         else:
             x = torch.zeros(4, 64, 32, dtype=torch.bfloat16, **meta)
             fn = getattr(fa, which)

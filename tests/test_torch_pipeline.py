@@ -151,14 +151,49 @@ def test_depth_to_disparity_matches():
                                np.asarray(j_disp(jnp.asarray(d))), rtol=1e-6)
 
 
-def test_non_multiple_size_raises():
-    """Resizing into the diffusion stack is not ported: 40×40 raises."""
+@pytest.mark.parametrize("src,dst", [(200, 256), (256, 200)])
+def test_resize_matches_jax_image_resize(src, dst):
+    """`resize_bilinear` against `jax.image.resize(..., "bilinear")`: a
+    200→256 upsample and a 256→200 antialiased downsample; atol 1e-5."""
+    from gaussctrl_tpu_torch.pipeline.gaussctrl import resize_bilinear
+    x = np.random.default_rng(src).uniform(size=(2, src, src, 3)).astype(np.float32)
+    ref = jax.image.resize(jnp.asarray(x), (2, dst, dst, 3), "bilinear")
+    got = resize_bilinear(torch.tensor(x), dst, dst)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_non_multiple_size_matches_jax():
+    """40×40 cameras, not a multiple of the tiny stack's 16: both packages
+    resize into the diffusion stack (48×48) and back. render_reverse →
+    edit_images against the JAX pipeline at this file's tolerances (z_T
+    2e-4, edited 1e-3)."""
+    size, v = 40, 3
+    jscene = j_random_scene(jax.random.PRNGKey(1), 150, sh_degree=1,
+                            extent=0.5)
+    params = random_flax_params(JSDModels.create(JSDConfig.tiny()), seed=2)
+    c2ws = _ring_c2ws(v)
+    kw = dict(_cfg_kwargs(2), ref_view_num=1, num_inference_steps=1)
+    jpipe = JPipeline(JConfig(**kw), jscene,
+                      j_make_cameras(c2ws, size, size, size / 2, size / 2,
+                                     size, size),
+                      sd_config=JSDConfig.tiny(),
+                      sd_params=jax.tree_util.tree_map(jnp.asarray, params),
+                      dtype=jnp.float32)
+    jpipe.render_reverse().edit_images()
     scene = GaussianScene.from_numpy(
-        {k: np.zeros(s, np.float32) for k, s in
-         (("means", (4, 3)), ("scales", (4, 3)), ("quats", (4, 4)),
-          ("opacities", (4, 1)), ("features_dc", (4, 3)),
-          ("features_rest", (4, 3, 3)))})
-    cams = make_cameras(_ring_c2ws(2), 40, 40, 20, 20, 40, 40)
-    with pytest.raises(ValueError, match="multiple"):
-        GaussCtrlPipeline(GaussCtrlConfig(), scene, cams,
-                          sd_config=SDConfig.tiny(), device="cpu")
+        {k: np.asarray(getattr(jscene, k)) for k in
+         ("means", "scales", "quats", "opacities", "features_dc",
+          "features_rest")})
+    tpipe = GaussCtrlPipeline(
+        GaussCtrlConfig(**kw), scene,
+        make_cameras(c2ws, size, size, size / 2, size / 2, size, size),
+        sd_config=SDConfig.tiny(), sd_params=params, dtype=torch.float32,
+        device="cpu")
+    assert tpipe._diffusion_hw() == jpipe._diffusion_hw() == (48, 48)
+    tpipe.render_reverse().edit_images()
+    assert tpipe.z_T.shape == (v, 6, 6, 4)
+    assert tpipe.edited.shape == (v, size, size, 3)
+    np.testing.assert_allclose(tpipe.z_T.numpy(), np.asarray(jpipe.z_T),
+                               atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(tpipe.edited.numpy(), np.asarray(jpipe.edited),
+                               atol=1e-3)
