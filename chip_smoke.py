@@ -12,16 +12,19 @@ Phases, each printing one JSON line with its wall time:
   2. build        the kernel library (one nvcc call over every csrc/*.cu,
                   compiling them in parallel);
   3. kernels      K1 (splat blend), K4 (its backward), K2 (inversion
-                  attention) and K3 (cross-view attention) held against
-                  their plain PyTorch versions on the card at the main
-                  path's shapes, with the tolerance stated, and timed beside
-                  their plain versions, one PyTorch library call where one
-                  computes the same function, and their bound at 989 TFLOP/s
-                  bf16 / 67 TFLOP/s fp32 / 3.35 TB/s;
+                  attention), K3 (cross-view attention), K5 (single-shot
+                  standard-layout attention: text cross-attention, composed
+                  references) and K6 (streaming attention: the VAE
+                  mid-block, composed references) held against their plain
+                  PyTorch versions on the card at the main path's shapes,
+                  with the tolerance stated, and timed beside their plain
+                  versions, one PyTorch library call where one computes the
+                  same function, and their bound at 989 TFLOP/s bf16 /
+                  67 TFLOP/s fp32 / 3.35 TB/s;
   4. small        a tiny-config pipeline on the card against the same
                   pipeline on the CPU (plain versions), both bf16, with
-                  each K2/K3 call on the card also held against its plain
-                  version on its own inputs;
+                  each K2/K3/K5/K6 call on the card also held against its
+                  plain version on its own inputs;
   5. train        a few re-optimisation steps of a tiny scene on the card
                   against the CPU in float32 (loss and first-step
                   gradients), each K4 call also held against its plain
@@ -31,7 +34,14 @@ Phases, each printing one JSON line with its wall time:
                   weights in bf16 on a seeded random scene of 200,000
                   gaussians: finite outputs of the right shapes, finite
                   re-optimisation losses and exact launch counts for every
-                  kernel.
+                  kernel;
+  7. composed     one edit step at SD-1.5 width on the fused route (K3 at
+                  4096/1024/256 tokens) and on the composed route
+                  (allow_fused=False: K2 for the self branch, K5/K6 for the
+                  references), every composed call held in situ against K3
+                  on its inputs, the two steps' outputs held to twice the
+                  gap bf16 rounding alone sets there, and both routes timed
+                  per token level.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero, and
@@ -43,6 +53,8 @@ package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import os
@@ -72,9 +84,10 @@ GAUSSIANS, SIZE, WEIGHTS_SEED, REPS = 200_000, 512, 0, 20
 # the tiny pipeline on the card against the CPU, both bf16: renders are
 # float32 and held by max abs error; z_T and the edits pass through bf16
 # networks whose every layer rounds differently on the two (cuDNN/cuBLAS/
-# K2/K3 against the CPU's), and the random tiny networks amplify that: on an
-# H100 they read a relative RMS of 0.031 (z_T) and 0.038 (edited), held to
-# 0.05 and 0.06. The kernels' own share is held sharply in situ.
+# the attention kernels against the CPU's), and the random tiny networks
+# amplify that: on an H100 they read a relative RMS of 0.031 (z_T) and
+# 0.038 (edited), held to 0.05 and 0.06. The kernels' own share is held
+# sharply in situ.
 SMALL_REL_TOL = dict(z_T=0.05, edited=0.06)
 # re-optimisation steps of the main path (the reference runs render_rate =
 # 500; --reopt-steps 500 gives that)
@@ -107,8 +120,32 @@ TRAIN_GRAD_SCALED_TOL = 1e-4
 # batch is capped so that they fit beside the kernel's inputs
 K2_MAX_TIMED_BATCH = 8
 # self-attention layers per level in (UNet, ControlNet): down blocks 0-2 hold
-# two each, the mid block one, up blocks 1-3 three each (UNet only)
+# two each, the mid block one, up blocks 1-3 three each (UNet only); each
+# sits in a transformer block with one text cross-attention
 LAYERS_PER_LEVEL = {4096: (5, 2), 1024: (5, 2), 256: (5, 2), 64: (1, 1)}
+# the composed route's edit step against the fused one's, end to end: its
+# relative RMS gap at most this times the gap between the fused step with K3
+# and with K3's plain version (rounding alone). On an H100 the two read
+# 0.0616 and 0.0623 (random SD-1.5 weights amplify bf16 rounding); each
+# layer is held sharply in situ.
+COMPOSED_FLOOR_RATIO = 2.0
+# text tokens the cross-attention attends to (CLIP's 77)
+TEXT_TOKENS = 77
+# the VAE mid-block's one head: width and tokens (64x64 latents)
+VAE_WIDTH, VAE_TOKENS = 512, 4096
+
+
+def fused_levels():
+    """The token levels the edit lane sends to K3."""
+    from gaussctrl_tpu_torch.diffusion import processors
+    return processors._XVIEW_FUSED_DEFAULT.split(",")
+
+
+def std_kernel(d: int, tk: int) -> str:
+    """The kernel `flash_attention(kernel="auto")` takes for a call that is
+    not square self-attention: K5 where its panel fits, else K6."""
+    from gaussctrl_tpu_torch.ops import flash_attention as fa
+    return "attention_full" if fa.full_fits(d, tk) else "attention_stream"
 
 
 def emit(obj) -> None:
@@ -450,6 +487,108 @@ def check_k3(views: int, refs: int, reps: int):
     return recs
 
 
+def _time_std(rec, kernel, plain, library, args, flops, nbytes, reps):
+    """Time a K5/K6 call beside its plain version and the library call, and
+    add its bound (bf16 tensor-core operations or bytes)."""
+    rec.update(kernel_ms=cuda_ms(lambda: kernel(*args), reps),
+               plain_ms=cuda_ms(lambda: plain(*args), max(1, reps // 10)),
+               library_ms=cuda_ms(library, reps),
+               **bound_fields(flops, PEAK_BF16, nbytes))
+
+
+def _sdpa(q, k, v, heads):
+    """The library call that computes the same function: SDPA on
+    [B, h, T, d] copies (made outside the timed call)."""
+    import torch.nn.functional as F
+    qs, ks, vs = (_sdpa_layout(x, heads) for x in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs)
+
+
+def _ref_views(g, f, t, c, gen):
+    """q [G, F·t, C] and the first reference's k, v as views of [G, F, t, C]
+    tensors, as `_grouped_ref_attention` hands them to its kernel."""
+    q = _rand_bf16((g, f * t, c), gen)
+    kg, vg = (_rand_bf16((g, f, t, c), gen) for _ in range(2))
+    return q, kg[:, 0], vg[:, 0]
+
+
+def _std_cost(b, tq, tk, c):
+    """FLOPs and bytes one attention call needs: two products of
+    2·Tq·Tk·C each; q, k, v read once and o written once, in bf16."""
+    return 4.0 * b * tq * tk * c, 2.0 * (2 * b * tq * c + 2 * b * tk * c)
+
+
+def check_k5(views: int, reps: int):
+    """K5 at every text cross-attention level (Tk = 77; the edit batch
+    B = 2·(refs + chunk), timed, and the inversion batch B = views) and at
+    the composed references of each level where its panel fits (64 tokens:
+    G = 2, 8·64 queries against one reference's 64 keys, k/v strided
+    views), timed, against attention_plain."""
+    import torch
+    from gaussctrl_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    b_edit = 2 * (REFS + CHUNK)
+    recs = []
+    cases = [("text", b, t, c) for t, c in LEVELS
+             for b in sorted({b_edit, views})]
+    cases += [("ref", 2, t, c) for t, c in LEVELS if fa.full_fits(c // HEADS, t)]
+    for use, b, t, c in cases:
+        if use == "text":
+            q = _rand_bf16((b, t, c), gen)
+            k, v = (_rand_bf16((b, TEXT_TOKENS, c), gen) for _ in range(2))
+        else:
+            q, k, v = _ref_views(b, REFS + CHUNK, t, c, gen)
+        args = (q, k, v, HEADS)
+        rec = dict(phase="kernels", kernel="attention_full", use=use, B=b,
+                   T=t, Tq=q.shape[1], Tk=k.shape[1], C=c, heads=HEADS,
+                   **attn_errors(fa.attention_full(*args), fa.attention_plain(*args)))
+        if use == "ref" or b == b_edit:
+            _time_std(rec, fa.attention_full, fa.attention_plain,
+                      _sdpa(*args), args, *_std_cost(b, q.shape[1], k.shape[1], c),
+                      reps)
+        emit(rec)
+        recs.append(rec)
+    bad = [(r["use"], r["B"], r["T"]) for r in recs if not attn_ok(r)]
+    if bad:
+        raise AssertionError(f"K5 disagrees with its plain version at {bad}")
+    return recs
+
+
+def check_k6(views: int, reps: int):
+    """K6 at the VAE mid-block (B = views, T = 4096, one head of 512),
+    timed; at the composed references of each level where `auto` picks it
+    (K5's panel does not fit: 4096, 1024, 256), timed; and at tails
+    (T = 100, at widths 40 and 512), against attention_stream_plain."""
+    import torch
+    from gaussctrl_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    cases = [("vae", views, VAE_TOKENS, VAE_WIDTH, 1)]
+    cases += [("ref", 2, t, c, HEADS) for t, c in LEVELS
+              if not fa.full_fits(c // HEADS, t)]
+    cases += [("tail", 2, 100, 320, HEADS), ("tail", 2, 100, VAE_WIDTH, 1)]
+    recs = []
+    for use, b, t, c, heads in cases:
+        if use == "ref":
+            q, k, v = _ref_views(b, REFS + CHUNK, t, c, gen)
+        else:
+            q, k, v = (_rand_bf16((b, t, c), gen) for _ in range(3))
+        args = (q, k, v, heads)
+        rec = dict(phase="kernels", kernel="attention_stream", use=use, B=b,
+                   T=t, Tq=q.shape[1], Tk=k.shape[1], C=c, heads=heads,
+                   **attn_errors(fa.attention_stream(*args),
+                                 fa.attention_stream_plain(*args)))
+        if use != "tail":
+            _time_std(rec, fa.attention_stream, fa.attention_stream_plain,
+                      _sdpa(*args), args, *_std_cost(b, q.shape[1], k.shape[1], c),
+                      reps)
+        emit(rec)
+        recs.append(rec)
+    bad = [(r["use"], r["B"], r["T"], r["C"]) for r in recs if not attn_ok(r)]
+    if bad:
+        raise AssertionError(f"K6 disagrees with its plain version at {bad}")
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: tiny pipeline, card against CPU
 # ---------------------------------------------------------------------------
@@ -489,11 +628,30 @@ def _held_to_plain(kernel, plain, worst: dict):
     return call
 
 
+@contextlib.contextmanager
+def _patched(entries):
+    """Set (module, name, value) entries for the duration of the block."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in entries]
+    for m, n, val in entries:
+        setattr(m, n, val)
+    try:
+        yield
+    finally:
+        for m, n, val in saved:
+            setattr(m, n, val)
+
+
 def check_small():
     """The tiny pipeline on the card (kernels) against the same pipeline on
     the CPU (plain versions), both bf16 with the same weights. On the card,
-    each K2/K3 call is also held against its plain version on its own
-    inputs, which covers the tiny config's head widths (16 and 32)."""
+    each K2/K3/K5/K6 call is also held against its plain version on its own
+    inputs, which covers the tiny config's head widths (16 and 32). The
+    tiny UNet attends at 64 and 16 tokens, none of which is a fused level
+    and all of whose shapes fit K5's panel; so on both sides the 64-token
+    level is made fused (K3) and the references of the composed 16-token
+    level are sent to K6 (kernel="stream"), so that every attention kernel
+    runs: K2 in the inversion, the composed self branch and the VAE
+    mid-block, K5 in the text cross-attention."""
     import torch
     from gaussctrl_tpu_torch.diffusion import processors
     from gaussctrl_tpu_torch.diffusion.config import SDConfig
@@ -511,18 +669,21 @@ def check_small():
             conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * 0.05)
     state = {k: m.to(torch.bfloat16).state_dict() for k, m in
              zip(("unet", "controlnet", "vae", "text"), models.modules())}
-    cpu = tiny_pipeline("cpu", state)
-    in_situ = {"flash_attention_t": {}, "cross_view_attention": {}}
-    saved = processors.flash_attention_t, processors.cross_view_attention
-    processors.flash_attention_t = _held_to_plain(
-        fa.flash_attention_t, fa.attention_plain, in_situ["flash_attention_t"])
-    processors.cross_view_attention = _held_to_plain(
-        fa.cross_view_attention, fa.cross_view_attention_plain,
-        in_situ["cross_view_attention"])
-    try:
+    routes = [
+        (processors, "_XVIEW_FUSED_DEFAULT", "64"),
+        (processors, "_grouped_ref_attention", functools.partial(
+            processors._grouped_ref_attention, flash_fn=functools.partial(
+                fa.flash_attention, kernel="stream", is_self=False)))]
+    with _patched(routes):
+        cpu = tiny_pipeline("cpu", state)
+    kernels = [(fa, "flash_attention_t", fa.attention_plain),
+               (processors, "cross_view_attention", fa.cross_view_attention_plain),
+               (fa, "attention_full", fa.attention_plain),
+               (fa, "attention_stream", fa.attention_stream_plain)]
+    in_situ = {name: {} for _, name, _ in kernels}
+    with _patched(routes + [(m, n, _held_to_plain(getattr(m, n), plain, in_situ[n]))
+                            for m, n, plain in kernels]):
         card = tiny_pipeline(DEVICE, state)
-    finally:
-        processors.flash_attention_t, processors.cross_view_attention = saved
     errs, rel = {}, {}
     for k, ref in cpu.items():
         diff = card[k] - ref
@@ -657,10 +818,28 @@ def main_path(args, card):
     others = [i for i in range(V) if i not in pipe.ref_indices]
     n_chunks = -(-len(others) // cfg.chunk_size)
     steps = args.reopt_steps
-    expected = {"splat_blend_fwd": V + steps,          # renders, re-opt steps
-                "splat_blend_bwd": steps,
-                "flash_attention_t": args.steps * n_self,   # one inversion batch
-                "cross_view_attention": args.steps * n_self * n_chunks}
+    # UNet + ControlNet forwards of the inversion and of the edit
+    inv_fwd = args.steps * (1 if cfg.invert_batch <= 0
+                            else -(-V // cfg.invert_batch))
+    edit_fwd = args.steps * n_chunks
+    expected = dict.fromkeys(launch_counts, 0)
+    expected["splat_blend_fwd"] = V + steps      # renders, re-opt steps
+    expected["splat_blend_bwd"] = steps
+    # every self-attention of the inversion
+    expected["flash_attention_t"] = inv_fwd * n_self
+    for t, c in LEVELS:
+        n_unet, n_cn = LAYERS_PER_LEVEL[t]
+        # one text cross-attention per transformer block of every forward
+        expected[std_kernel(c // HEADS, TEXT_TOKENS)] += \
+            (inv_fwd + edit_fwd) * (n_unet + n_cn)
+        if str(t) in fused_levels():             # K3 (4096/1024/256)
+            expected["cross_view_attention"] += edit_fwd * (n_unet + n_cn)
+        else:   # composed (64): the UNet's self branch (the ControlNet has
+            # c = 0) and one call per reference in both networks
+            expected["flash_attention_t"] += edit_fwd * n_unet
+            expected[std_kernel(c // HEADS, t)] += edit_fwd * R * (n_unet + n_cn)
+    # the VAE mid-block: one per encode batch, one for the decode
+    expected[std_kernel(VAE_WIDTH, VAE_TOKENS)] += -(-V // cfg.render_batch) + 1
 
     # each stage of run() is timed to its end on the card
     ends = {}
@@ -713,6 +892,129 @@ def main_path(args, card):
         raise AssertionError(f"non-finite outputs: {finite}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
+    return rec, pipe
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the composed cross-view route against the fused one
+# ---------------------------------------------------------------------------
+
+def edit_step(pipe, fused: bool, steps: int, wrap=lambda proc: proc):
+    """The first DDIM step of the edit (of `steps`) for the refs and the
+    first chunk, CFG-doubled, with the cross-view processors' allow_fused
+    set to `fused` (and each processor passed through `wrap`): (guided eps,
+    the step's latent), NHWC."""
+    import torch
+    from gaussctrl_tpu_torch.diffusion.clip import NEGATIVE_PROMPT, POSITIVE_SUFFIX
+    from gaussctrl_tpu_torch.diffusion.ddim import ddim_step, timestep_pairs
+    from gaussctrl_tpu_torch.diffusion.processors import CrossViewAttnProcessor
+    from gaussctrl_tpu_torch.diffusion.sample import (eps_model, nchw_to_nhwc,
+                                                      nhwc_to_nchw)
+    cfg, refs = pipe.config, pipe.ref_indices
+    order = refs + [i for i in range(len(pipe.cameras)) if i not in refs][:cfg.chunk_size]
+    b = len(order)
+    z = pipe.z_T[order]
+    disp = pipe._to_diffusion_res(pipe.disparity[order])
+    ctx = torch.cat([pipe._ctx(NEGATIVE_PROMPT, b),
+                     pipe._ctx(cfg.edit_prompt + POSITIVE_SUFFIX, b)])
+    t, t_prev = (x[0] for x in timestep_pairs(steps))
+    eps = eps_model(pipe.models, torch.cat([z, z]), t, ctx.to(pipe.models.dtype),
+                    torch.cat([disp, disp]), cfg.conditioning_scale,
+                    unet_processor=wrap(CrossViewAttnProcessor(
+                        len(refs), cfg.self_attn_coeff, 2, allow_fused=fused)),
+                    controlnet_processor=wrap(CrossViewAttnProcessor(
+                        len(refs), 0.0, 2, allow_fused=fused)))
+    eps_u, eps_c = eps.chunk(2)
+    eps = eps_u + cfg.guidance_scale * (eps_c - eps_u)
+    step = ddim_step(pipe.sched, nhwc_to_nchw(z), nhwc_to_nchw(eps).to(z.dtype),
+                     t, t_prev)
+    return eps, nchw_to_nhwc(step)
+
+
+def _held_to_fused(proc, worst: dict):
+    """A composed-route processor that also holds each of its outputs
+    against the fused kernel K3 on the same inputs, keeping the worst errors
+    and the number of calls per token level."""
+    from gaussctrl_tpu_torch.ops import flash_attention as fa
+
+    def call(q, k, v, heads):
+        out = proc(q, k, v, heads)
+        e = attn_errors(out, fa.cross_view_attention(
+            q, k, v, heads, proc.num_refs, proc.self_attn_coeff, proc.cfg_groups))
+        w = worst.setdefault(str(q.shape[1]), {})
+        w["calls"] = w.get("calls", 0) + 1
+        for key in ("scaled_err", "rel_rms_err"):
+            w[key] = max(w.get(key, 0.0), e[key])
+        return out
+    return call
+
+
+def check_composed(pipe, steps: int, reps: int):
+    """One edit step at SD-1.5 width on the fused route and on the composed
+    route (allow_fused=False), with each route's launches. Every composed
+    call of the step is held in situ against K3 on its own inputs, at the
+    kernels' tolerance. End to end, random SD-1.5 weights amplify any
+    layer's bf16 rounding difference to several percent of the step's
+    output, so the two steps' outputs are held against the floor that
+    rounding alone sets there, the fused step with K3 replaced by its plain
+    version: the composed route's relative RMS gap to the fused step at most
+    COMPOSED_FLOOR_RATIO times the floor's. Then both routes are timed per
+    token level (G = 2, F = refs + chunk) for the UNet's c = 0.6 and the
+    ControlNet's c = 0."""
+    import torch
+    from gaussctrl_tpu_torch.diffusion import processors
+    from gaussctrl_tpu_torch.diffusion.processors import CrossViewAttnProcessor
+    from gaussctrl_tpu_torch.ops import (flash_attention as fa, launch_counts,
+                                         reset_launch_counts)
+    t0 = time.perf_counter()
+    outs, launches, step_ms = {}, {}, {}
+    for route, fused in (("fused", True), ("composed", False)):
+        reset_launch_counts()
+        outs[route] = edit_step(pipe, fused, steps)
+        torch.cuda.synchronize()
+        launches[route] = {k: v for k, v in launch_counts.items() if v}
+        step_ms[route] = cuda_ms(lambda: edit_step(pipe, fused, steps), 2)
+    with _patched([(processors, "cross_view_attention",
+                    fa.cross_view_attention_plain)]):
+        floor = edit_step(pipe, True, steps)
+    in_situ = {}
+    edit_step(pipe, False, steps, wrap=lambda proc: _held_to_fused(proc, in_situ))
+    end_to_end = {
+        name: dict(composed=attn_errors(outs["composed"][i], outs["fused"][i]),
+                   floor=attn_errors(floor[i], outs["fused"][i]))
+        for i, name in enumerate(("eps", "step"))}
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    f, r = REFS + CHUNK, REFS
+    levels = []
+    for t, c in LEVELS:
+        q, k, v = (_rand_bf16((2 * f, t, c), gen) for _ in range(3))
+        row = dict(T=t, C=c)
+        for coeff in (0.6, 0.0):
+            comp = CrossViewAttnProcessor(r, coeff, 2, allow_fused=False)
+            row[f"fused_ms_c{coeff}"] = cuda_ms(
+                lambda: fa.cross_view_attention(q, k, v, HEADS, r, coeff, 2), reps)
+            row[f"composed_ms_c{coeff}"] = cuda_ms(lambda: comp(q, k, v, HEADS), reps)
+        levels.append(row)
+    per_step = {route: sum(row[f"{route}_ms_c0.6"] * LAYERS_PER_LEVEL[row["T"]][0]
+                           + row[f"{route}_ms_c0.0"] * LAYERS_PER_LEVEL[row["T"]][1]
+                           for row in levels) for route in ("fused", "composed")}
+    rec = dict(phase="composed", seconds=time.perf_counter() - t0,
+               in_situ=in_situ, end_to_end=end_to_end, launches=launches,
+               step_ms=step_ms, levels=levels, attention_ms_per_step=per_step)
+    emit(rec)
+    if (launches["composed"].get("cross_view_attention")
+            or not launches["fused"].get("cross_view_attention")):
+        raise AssertionError(f"the routes did not take their kernels: {launches}")
+    layers = {str(t): sum(n) for t, n in LAYERS_PER_LEVEL.items()}
+    if ({t: w.get("calls") for t, w in in_situ.items()} != layers
+            or not all(attn_ok(w) for w in in_situ.values())):
+        raise AssertionError(f"the composed route disagrees with the fused "
+                             f"kernel in situ: {in_situ}")
+    step = end_to_end["step"]
+    if not (step["composed"]["rel_rms_err"]
+            <= COMPOSED_FLOOR_RATIO * step["floor"]["rel_rms_err"]):
+        raise AssertionError(f"the composed route's edit step is further from "
+                             f"the fused one than bf16 rounding sets: {step}")
     return rec
 
 
@@ -773,6 +1075,8 @@ def main() -> int:
     k4 = check_k4(scene, cams, REPS)
     k2 = check_k2(min(args.views, K2_MAX_TIMED_BATCH), REPS)
     k3 = check_k3(REFS + CHUNK, REFS, REPS)
+    k5 = check_k5(args.views, REPS)
+    k6 = check_k6(args.views, REPS)
     del scene, cams
     torch.cuda.empty_cache()
     emit(dict(phase="kernels_done", seconds=time.perf_counter() - t0))
@@ -784,9 +1088,14 @@ def main() -> int:
     train = check_train()
 
     # 6. the main path
-    mp = main_path(args, card)
+    mp, pipe = main_path(args, card)
 
-    # per-kernel summary: K2/K3 times are per DDIM step of the main path
+    # 7. the composed cross-view route against the fused one
+    composed = check_composed(pipe, args.steps, REPS // 4)
+    del pipe
+    torch.cuda.empty_cache()
+
+    # per-kernel summary: K2/K3/K5 times are per DDIM step of the main path
     # (each level's time times its self-attention layers in UNet + ControlNet)
     per_level = LAYERS_PER_LEVEL
     layers = mp["self_attention_layers"]
@@ -809,6 +1118,19 @@ def main() -> int:
     def bound_by(recs, coeff_of=None):
         ops = step_sum(recs, "ops_ms", coeff_of)
         return "operations" if ops >= step_sum(recs, "bytes_ms", coeff_of) else "bytes"
+
+    # K5 per edit step (the edit batch): the text cross-attention of every
+    # transformer block, and r reference calls per 64-token layer
+    def k5_calls(rec):
+        if rec["use"] == "text":
+            return sum(per_level[rec["T"]])
+        return 0 if str(rec["T"]) in fused_levels() else REFS * sum(per_level[rec["T"]])
+
+    k5_step = {key: sum(rec[key] * k5_calls(rec) for rec in k5 if key in rec)
+               for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                           "ops_ms", "bytes_ms")}
+    # K6 per call of the main path: the VAE mid-block at B = views
+    vae = next(rec for rec in k6 if rec["use"] == "vae")
 
     launches = mp["launches"]
     kernels = [
@@ -843,6 +1165,24 @@ def main() -> int:
              plain_ms=step_sum(k3, "plain_ms", True),
              bound_ms=step_sum(k3, "bound_ms", True), bound_by=bound_by(k3, True),
              library_ms=step_sum(k3, "library_ms", True)),
+        dict(name="attention_full", route="cuda",
+             source="gaussctrl_tpu_torch/csrc/attention_std.cu",
+             replaces="gaussctrl_tpu/ops/flash_attention.py:81",
+             launches=launches["attention_full"],
+             max_abs_err=max(r["max_abs_err"] for r in k5),
+             ms=k5_step["kernel_ms"], plain_ms=k5_step["plain_ms"],
+             bound_ms=k5_step["bound_ms"],
+             bound_by=("operations" if k5_step["ops_ms"] >= k5_step["bytes_ms"]
+                       else "bytes"),
+             library_ms=k5_step["library_ms"]),
+        dict(name="attention_stream", route="cuda",
+             source="gaussctrl_tpu_torch/csrc/attention_std.cu",
+             replaces="gaussctrl_tpu/ops/flash_attention.py:40",
+             launches=launches["attention_stream"],
+             max_abs_err=max(r["max_abs_err"] for r in k6),
+             ms=vae["kernel_ms"], plain_ms=vae["plain_ms"],
+             bound_ms=vae["bound_ms"], bound_by=vae["bound_by"],
+             library_ms=vae["library_ms"]),
     ]
     total_s = time.perf_counter() - t_start
     emit(dict(phase="done", card=card, total_s=total_s))
@@ -850,7 +1190,8 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build=build, k1=k1, k4=k4, k2=k2, k3=k3,
-                           train=train, main_path=mp,
+                           k5=k5, k6=k6, train=train, main_path=mp,
+                           composed=composed,
                            kernels=kernels, total_s=total_s),
                       f, indent=1)
     emit({"kernels": kernels})

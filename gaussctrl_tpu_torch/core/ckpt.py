@@ -6,8 +6,9 @@ pruning, and an fp16 archive of a scene (`compress_scene_npz`). A
 checkpoint written here loads with the JAX package's `load_scene_npz`, and
 the other way round. `import_splatfacto_ckpt` reads a nerfstudio
 splatfacto checkpoint (the flat parameter names of nerfstudio 1.0 or the
-newer `gauss_params.*`). The sharded checkpoints of a device mesh are not
-ported.
+newer `gauss_params.*`). The sharded orbax checkpoints of a device mesh are
+not ported: `latest_checkpoint` sees them, as the JAX package's does, and
+`load_scene_npz` raises on them.
 """
 
 from __future__ import annotations
@@ -55,7 +56,12 @@ def save_pytree(path, scene: GaussianScene) -> None:
 
 def load_scene_npz(path, device="cpu") -> GaussianScene:
     """Load a GaussianScene from a checkpoint npz, always as float32 (an
-    fp16 archive resumes at full precision)."""
+    fp16 archive resumes at full precision). The JAX package's sharded orbax
+    checkpoints are not read yet."""
+    if Path(path).is_dir() or str(path).endswith(".orbax"):
+        raise NotImplementedError(
+            f"{path} is an orbax checkpoint of the JAX package's device mesh; "
+            f"the port reads npz checkpoints only")
     data = np.load(path)
     return GaussianScene(**{k: torch.tensor(data[k].astype(np.float32),
                                             device=device) for k in _FIELDS})
@@ -93,8 +99,11 @@ def save_checkpoint(ckpt_dir, step: int, scene: GaussianScene,
 
 
 def latest_checkpoint(ckpt_dir) -> Path | None:
-    """The highest-step npz; at equal steps the full-precision one."""
-    ckpts = list(Path(ckpt_dir).glob("step-*.npz"))
+    """The highest-step checkpoint across the npz files and the JAX
+    package's orbax directories (`step-*.orbax`); at equal steps the
+    full-precision npz, then the first listed, as the JAX package picks."""
+    ckpts = list(Path(ckpt_dir).glob("step-*.npz")) + \
+        list(Path(ckpt_dir).glob("step-*.orbax"))
     return max(ckpts, key=lambda p: (checkpoint_step(p),
                                      not p.name.endswith(".fp16.npz"))
                ) if ckpts else None

@@ -11,7 +11,9 @@ Transformer2D, tanh-approximate GELU in GEGLU.
 The self-attention processor is a forward argument threaded through the
 module tree, as in the JAX package: `processor(q, k, v, heads)` maps the
 projected q/k/v [B, T, C] to the attention output. Text cross-attention and
-any layer given no processor take the plain attention below.
+any layer given no processor (the VAE's mid-block) take `attention` below:
+a kernel on the card, the plain version with bounded score memory on the
+CPU.
 """
 
 from __future__ import annotations
@@ -23,16 +25,52 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gaussctrl_tpu_torch.ops.flash_attention import attention_plain
+from gaussctrl_tpu_torch.ops.flash_attention import (attention_plain,
+                                                     flash_attention)
 
 AttnProcessor = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
                          torch.Tensor]
 
+# the most score memory (MB) one plain attention call may build before its
+# queries are split into blocks (the JAX package's GAUSSCTRL_SCORES_MB
+# default)
+_SCORES_BUDGET_MB = 2048.0
+
+
+def _scores_mb(b: int, heads: int, tq: int, tk: int) -> float:
+    """MB of the fp32 score tensor [B, h, Tq, Tk] the plain path builds."""
+    return b * heads * tq * tk * 4 / 2**20
+
 
 def attention(q, k, v, heads: int) -> torch.Tensor:
-    """Multi-head softmax attention, fp32 scores and softmax (the JAX
-    package's einsum path). q [B,Tq,C], k/v [B,Tk,C]."""
+    """Multi-head softmax attention with fp32 scores and softmax.
+    q [B,Tq,C], k/v [B,Tk,C]. On the card through `flash_attention`'s
+    kernels (K2, K5 or K6, none of which builds the scores in device
+    memory); elsewhere the plain version, query-blocked where the scores
+    would pass `_SCORES_BUDGET_MB`, as the JAX package does."""
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, heads, kernel="auto")
+    b, tq, c = q.shape
+    if _scores_mb(b, heads, tq, k.shape[1]) > _SCORES_BUDGET_MB:
+        return attention_einsum_qblocked(q, k, v, heads,
+                                         budget_mb=_SCORES_BUDGET_MB)
     return attention_plain(q, k, v, heads)
+
+
+def attention_einsum_qblocked(q, k, v, heads: int, budget_mb: float = 2048.0,
+                              q_block: Optional[int] = None) -> torch.Tensor:
+    """Exact attention over blocks of queries, each block seeing all of K:
+    the score memory stays near `budget_mb` (the JAX package's block
+    choice: the largest multiple of 128 whose scores fit, at least 128)."""
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    if q_block is None:
+        q_block = int(budget_mb * 2**20 / (b * heads * tk * 4))
+        q_block = max(128, min(tq, q_block // 128 * 128))
+    if q_block >= tq:
+        return attention_plain(q, k, v, heads)
+    return torch.cat([attention_plain(q[:, lo:lo + q_block], k, v, heads)
+                      for lo in range(0, tq, q_block)], dim=1)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,

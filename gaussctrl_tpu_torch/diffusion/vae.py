@@ -4,8 +4,8 @@ Counterpart of `gaussctrl_tpu/diffusion/vae.py`: encoding takes the latent
 mean (deterministic) scaled by 0.18215; GroupNorm eps is 1e-6 throughout;
 the encoder downsamples with an asymmetric (0,1) pad and a stride-2 valid
 conv. Parameter names are the diffusers keys. The mid-block attention is a
-single 512-wide head computed with plain PyTorch, as the JAX package does
-with einsum.
+single 512-wide head through `nn.attention`: the streaming kernel K6 on the
+card, the plain version with bounded score memory on the CPU.
 """
 
 from __future__ import annotations

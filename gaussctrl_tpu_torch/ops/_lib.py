@@ -28,11 +28,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "gc_splat_blend_fwd": [_P] * 10 + [_I, _I, _I, _P],
     "gc_splat_blend_bwd": [_P] * 12 + [_I, _I, _I, _P],
     "gc_flash_attention": [_P] * 4 + [_I] * 5 + [_P],
     "gc_cross_view_attention": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
+    "gc_attention_full": [_P] * 4 + [_L, _L] + [_I] * 5 + [_P],
+    "gc_attention_stream": [_P] * 4 + [_L, _L] + [_I] * 5 + [_P],
     "gc_supported_head_dim": [_I],
 }
 

@@ -1,10 +1,13 @@
-"""Attention kernels K2 (inversion lane) and K3 (cross-view edit lane).
+"""Attention kernels: K2 (inversion lane), K3 (cross-view edit lane), K5
+(standard-layout single shot) and K6 (streaming), and `flash_attention`,
+which dispatches among K2, K5 and K6.
 
-Counterpart of `gaussctrl_tpu/ops/flash_attention.py`. Each kernel is CUDA
-C++ in `csrc/attention.cu`, launched through a wrapper that keeps the JAX
-layout `[B, T, C]` (heads side by side in C), so no relayout copy is made.
-Beside each wrapper is its plain PyTorch version; the wrapper takes it only
-for a tensor on the CPU. On a CUDA tensor it launches the kernel or raises.
+Counterpart of `gaussctrl_tpu/ops/flash_attention.py`. K2 and K3 are CUDA
+C++ in `csrc/attention.cu`, K5 and K6 in `csrc/attention_std.cu`; each is
+launched through a wrapper that keeps the JAX layout `[B, T, C]` (heads side
+by side in C), so no relayout copy is made. Beside each wrapper is its plain
+PyTorch version; the wrapper takes it only for a tensor on the CPU. On a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -14,6 +17,27 @@ import math
 import torch
 
 from gaussctrl_tpu_torch.ops import _lib, launch_counts
+
+# shared memory one block may take on the H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+# K5/K6 query rows per block and K6 keys per tile (csrc/attention_std.cu)
+_BQ, _BK = 64, 64
+# head widths up to which the transposed single shot (K2) is taken for
+# square self-attention; wider heads (the VAE's 512) go on to K5/K6
+_K2_MAX_HEAD_DIM = 160
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def full_smem_bytes(d: int, tk: int) -> int:
+    """Shared memory of one K5 block for head width d and tk keys: the
+    query rows, all of K and Vᵀ (bf16, width padded to 16, rows to 16) and
+    the [64, tk] fp32 score panel, as `full_smem` in attention_std.cu."""
+    dp, tk16 = _round_up(d, 16), _round_up(tk, 16)
+    return (2 * (_BQ * (dp + 8) + tk16 * (dp + 8) + dp * (tk16 + 8))
+            + 4 * _BQ * (tk16 + 4))
 
 
 # ---------------------------------------------------------------------------
@@ -36,6 +60,34 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = (p.to(v.dtype).float() @ vh.float()) / l.clamp_min(1e-30)
+    return o.transpose(1, 2).reshape(b, tq, c).to(q.dtype)
+
+
+def attention_stream_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           heads: int, block_k: int = _BK) -> torch.Tensor:
+    """The same function as `attention_plain`, as an online softmax over
+    blocks of `block_k` keys (the JAX `_flash_kernel`): fp32 running max,
+    sum and accumulator; each block's weights are rounded to v's dtype
+    before the second product."""
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    d = c // heads
+    qh = q.reshape(b, tq, heads, d).transpose(1, 2).float()
+    kh = k.reshape(b, tk, heads, d).transpose(1, 2).float()
+    vh = v.reshape(b, tk, heads, d).transpose(1, 2)
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((b, heads, tq, 1), -1e30, device=q.device)
+    l = torch.zeros((b, heads, tq, 1), device=q.device)
+    acc = torch.zeros((b, heads, tq, d), device=q.device)
+    for lo in range(0, tk, block_k):
+        s = (qh @ kh[:, :, lo:lo + block_k].transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ vh[:, :, lo:lo + block_k].float()
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
     return o.transpose(1, 2).reshape(b, tq, c).to(q.dtype)
 
 
@@ -129,3 +181,111 @@ def cross_view_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _lib.check(err, "cross_view_attention")
     launch_counts["cross_view_attention"] += 1
     return out
+
+
+# padded head widths (round_up(d, 16)) each of K5 and K6 is built for:
+# d = 8/16/32 (tiny and nano configs), 40/80/160 (SD-1.5), and for K6 512
+# (the SD VAE's mid-block)
+_FULL_WIDTHS = (16, 32, 48, 80, 160)
+_STREAM_WIDTHS = _FULL_WIDTHS + (512,)
+
+
+def full_fits(d: int, tk: int) -> bool:
+    """Whether K5 takes head width d with tk keys: a width it is built for,
+    and its score panel and K/V within one block's shared memory."""
+    return (d % 8 == 0 and _round_up(d, 16) in _FULL_WIDTHS
+            and full_smem_bytes(d, tk) <= SMEM_PER_BLOCK)
+
+
+def _check_std(name: str, heads: int, widths, q, k, v) -> None:
+    """What K5/K6 take: bf16 [B, T, C] on one CUDA device, rows of C
+    contiguous elements, q contiguous, k and v with one batch stride (so a
+    view such as `kg[:, i]` of a [G, F, T, C] tensor is read in place)."""
+    for t in (q, k, v):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: tensors must all lie on one CUDA device "
+                             f"or all on the CPU, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+        if (t.dim() != 3 or t.stride(2) != 1 or t.stride(1) != t.shape[2]
+                or t.stride(0) % 8 or t.data_ptr() % 16):
+            raise ValueError(f"{name}: the kernel takes [B, T, C] tensors with "
+                             f"contiguous rows and 16-byte aligned batches")
+    b, _, c = q.shape
+    if not q.is_contiguous():
+        raise ValueError(f"{name}: q must be contiguous")
+    if (k.shape != v.shape or k.stride() != v.stride() or k.shape[0] != b
+            or k.shape[2] != c or c % heads):
+        raise ValueError(f"{name}: k and v must be [B, Tk, C] like q with one "
+                         f"layout, C splitting into {heads} heads")
+    d = c // heads
+    if d % 8 or _round_up(d, 16) not in widths:
+        raise ValueError(f"{name}: head_dim {d} is not built (multiples of 8 "
+                         f"whose 16-padded width is one of {widths})")
+
+
+def _launch_std(name: str, fn, q, k, v, heads: int) -> torch.Tensor:
+    b, tq, c = q.shape
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             q.stride(0), k.stride(0), b, tq, k.shape[1], c, heads,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _lib.check(err, name)
+    launch_counts[name] += 1
+    return out
+
+
+def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   heads: int) -> torch.Tensor:
+    """K5: single-shot attention with the whole [64, Tk] fp32 score panel and
+    all of K/V in one block's shared memory. q [B,Tq,C], k/v [B,Tk,C] →
+    [B,Tq,C]. CPU tensors take `attention_plain`."""
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return attention_plain(q, k, v, heads)
+    _check_std("attention_full", heads, _FULL_WIDTHS, q, k, v)
+    need = full_smem_bytes(q.shape[2] // heads, k.shape[1])
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(f"attention_full: {k.shape[1]} keys need {need} bytes "
+                         f"of shared memory, over {SMEM_PER_BLOCK}; use "
+                         f"attention_stream")
+    return _launch_std("attention_full", _lib.library().gc_attention_full,
+                       q, k, v, heads)
+
+
+def attention_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     heads: int) -> torch.Tensor:
+    """K6: attention as an online softmax over 64-key K/V tiles, any Tk.
+    q [B,Tq,C], k/v [B,Tk,C] → [B,Tq,C]. CPU tensors take
+    `attention_stream_plain`."""
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return attention_stream_plain(q, k, v, heads)
+    _check_std("attention_stream", heads, _STREAM_WIDTHS, q, k, v)
+    return _launch_std("attention_stream", _lib.library().gc_attention_stream,
+                       q, k, v, heads)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    heads: int, kernel: str = "auto",
+                    is_self: bool | None = None) -> torch.Tensor:
+    """Attention q [B,Tq,C], k/v [B,Tk,C] → [B,Tq,C] through one kernel.
+
+    kernel: "full_t" = K2, "full" = K5, "stream" = K6, "auto" = the JAX
+    package's rule with the TPU's VMEM budget replaced by the card's shared
+    memory: square self-attention (Tq == Tk ≤ 4096, `is_self` not False)
+    with a head width K2 takes goes to K2; otherwise K5 when it is built for
+    the head width and its score panel and K/V fit one block's shared
+    memory, else K6. `is_self=False` marks a
+    call that is not self-attention though square (the grouped references
+    at one view)."""
+    tq, c = q.shape[1], q.shape[2]
+    tk = k.shape[1]
+    d = c // heads
+    if kernel == "full_t" or (kernel == "auto" and tq == tk and tq <= 4096
+                              and is_self is not False
+                              and d <= _K2_MAX_HEAD_DIM):
+        return flash_attention_t(q, k, v, heads)
+    if kernel == "full" or (kernel == "auto" and full_fits(d, tk)):
+        return attention_full(q, k, v, heads)
+    if kernel in ("auto", "stream"):
+        return attention_stream(q, k, v, heads)
+    raise ValueError(f"flash_attention: unknown kernel {kernel!r}")

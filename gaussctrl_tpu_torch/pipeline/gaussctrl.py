@@ -265,15 +265,18 @@ class GaussCtrlPipeline:
         edit_prompt = cfg.edit_prompt + POSITIVE_SUFFIX
         groups = 2 if cfg.guidance_scale > 1.0 else 1
 
+        # allow_fused: the fused kernel K3 runs on one card; the JAX package
+        # turns it off under a device mesh, which the port does not have yet
         def run_batch(z, disp):
             b = z.shape[0]
             return denoise(
                 self.models, self.sched, z, self._ctx(edit_prompt, b),
                 self._ctx(NEGATIVE_PROMPT, b), disp, cfg.guidance_scale,
                 cfg.num_inference_steps, cfg.conditioning_scale,
-                unet_processor=CrossViewAttnProcessor(R, cfg.self_attn_coeff,
-                                                      groups),
-                controlnet_processor=CrossViewAttnProcessor(R, 0.0, groups))
+                unet_processor=CrossViewAttnProcessor(
+                    R, cfg.self_attn_coeff, groups, allow_fused=True),
+                controlnet_processor=CrossViewAttnProcessor(
+                    R, 0.0, groups, allow_fused=True))
 
         # the ControlNet hint follows the latent geometry
         disparity = self._to_diffusion_res(self.disparity)

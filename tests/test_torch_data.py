@@ -177,6 +177,31 @@ def test_npz_checkpoint_across_packages(tmp_path):
     assert tckpt.load_scene_npz(arch).means.dtype == torch.float32
 
 
+@pytest.mark.parametrize("files,latest", [
+    # an orbax directory newer than the npz and beside its fp16 archive
+    (["step-000000100.npz", "step-000000200.orbax/", "step-000000200.fp16.npz"],
+     "step-000000200.orbax"),
+    # at equal steps the full-precision npz, then the first listed
+    (["step-000000200.npz", "step-000000200.orbax/", "step-000000100.orbax/"],
+     "step-000000200.npz"),
+])
+def test_latest_checkpoint_sees_orbax_as_jax_does(tmp_path, files, latest):
+    """Both packages' latest_checkpoint pick the same path across npz files
+    and orbax directories; the port's loader raises on an orbax directory,
+    naming it."""
+    js = _jax_scene(4)
+    for name in files:
+        if name.endswith("/"):
+            (tmp_path / name).mkdir()
+        else:
+            jckpt.save_pytree(tmp_path / name, js)
+    got = tckpt.latest_checkpoint(tmp_path)
+    assert got == jckpt.latest_checkpoint(tmp_path) == tmp_path / latest
+    orbax = next(tmp_path.glob("step-*.orbax"))
+    with pytest.raises(NotImplementedError, match=orbax.name):
+        tckpt.load_scene_npz(orbax)
+
+
 @pytest.mark.parametrize("layout", ["gauss_params", "flat"])
 def test_import_splatfacto_ckpt_matches_jax(tmp_path, layout):
     """A `torch.save`d splatfacto state dict (nerfstudio's newer

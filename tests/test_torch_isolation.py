@@ -74,6 +74,7 @@ def test_pipeline_default_device_raises_without_card():
 
 
 @pytest.mark.parametrize("which", ["flash_attention_t", "cross_view_attention",
+                                   "attention_full", "attention_stream",
                                    "splat_blend", "splat_blend_bwd"])
 def test_wrappers_refuse_non_cpu_tensors_without_fallback(which):
     """A tensor that is not on the CPU goes to the kernel or raises; it is
@@ -98,7 +99,7 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback(which):
         else:
             x = torch.zeros(4, 64, 32, dtype=torch.bfloat16, **meta)
             fn = getattr(fa, which)
-            fn(x, x, x, 2) if which == "flash_attention_t" else fn(x, x, x, 2, 1, 0.6, 2)
+            fn(x, x, x, 2, 1, 0.6, 2) if which == "cross_view_attention" else fn(x, x, x, 2)
     assert launch_counts == before
 
 
@@ -112,4 +113,7 @@ def test_plain_versions_are_used_on_cpu_without_counting():
     ref = fa.cross_view_attention_plain(q, q, q, 2, 2, 0.6, 2)
     assert torch.equal(out, ref)
     assert torch.equal(fa.flash_attention_t(q, q, q, 2), fa.attention_plain(q, q, q, 2))
+    assert torch.equal(fa.attention_full(q, q, q, 2), fa.attention_plain(q, q, q, 2))
+    assert torch.equal(fa.attention_stream(q, q, q, 2),
+                       fa.attention_stream_plain(q, q, q, 2))
     assert launch_counts == before

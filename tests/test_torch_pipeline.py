@@ -28,6 +28,7 @@ from gaussctrl_tpu.splat.scene import random_scene as j_random_scene
 from gaussctrl_tpu_torch.cameras.camera import make_cameras
 from gaussctrl_tpu_torch.diffusion.clip import (NEGATIVE_PROMPT,
                                                 POSITIVE_SUFFIX, HashTokenizer)
+from gaussctrl_tpu_torch.diffusion import processors as tproc
 from gaussctrl_tpu_torch.diffusion.config import SDConfig
 from gaussctrl_tpu_torch.pipeline.gaussctrl import (GaussCtrlConfig,
                                                     GaussCtrlPipeline,
@@ -128,6 +129,28 @@ def test_chunked_equals_all_at_once(runs):
     view's edit unchanged; atol 2e-3 as the JAX pipeline test states."""
     _, tpipe, chunked = runs
     np.testing.assert_allclose(chunked.numpy(), tpipe.edited.numpy(), atol=2e-3)
+
+
+def test_edit_takes_the_composed_route_at_tiny_levels(runs, monkeypatch):
+    """The tiny UNet attends at 64 and 16 tokens, outside the fused levels
+    (4096/1024/256), so every edit-lane layer takes the composed route (K2
+    for the self branch, the grouped references through K5/K6) and none
+    the fused K3, as the 64-token level does at SD-1.5 width. The
+    all-at-once edit still matches the JAX pipeline's chunked one within
+    2e-3, test_chunked_equals_all_at_once's tolerance."""
+    jpipe, tpipe, _ = runs
+    calls = []
+    monkeypatch.setattr(tproc, "cross_view_attention",
+                        lambda *a, **kw: calls.append("fused"))
+    orig = tproc._grouped_ref_attention
+    monkeypatch.setattr(tproc, "_grouped_ref_attention",
+                        lambda *a, **kw: calls.append("composed") or orig(*a, **kw))
+    tpipe.edit_images()
+    # 2 steps x (UNet 6 + ControlNet 3 self-attention layers: down block 0
+    # holds 2, the mid block 1, up block 1 holds 3), CFG in one batch
+    assert calls == ["composed"] * 18
+    np.testing.assert_allclose(tpipe.edited.numpy(), np.asarray(jpipe.edited),
+                               atol=2e-3)
 
 
 @pytest.mark.parametrize("n,r,seed", [(40, 4, 13789), (8, 4, 13789),
