@@ -10,7 +10,10 @@ Phases, each printing one JSON line with its wall time:
   1. environment  card name and power limit (nvidia-smi), torch and CUDA,
                   and whether PIL (the CLI's image writer) is installed;
   2. build        the kernel library (one nvcc call over every csrc/*.cu,
-                  compiling them in parallel);
+                  compiling them in parallel); then `sass`: registers,
+                  spills, shared memory and the count of HGMMA (wgmma)
+                  instructions of every instantiation of the K2/K6 core,
+                  from ptxas and cuobjdump, failing if one has none;
   3. kernels      K1 (splat blend), K4 (its backward), K2 (inversion
                   attention), K3 (cross-view attention), K5 (single-shot
                   standard-layout attention: text cross-attention, composed
@@ -20,7 +23,8 @@ Phases, each printing one JSON line with its wall time:
                   with the tolerance stated, and timed beside their plain
                   versions, one PyTorch library call where one computes the
                   same function, and their bound at 989 TFLOP/s bf16 /
-                  67 TFLOP/s fp32 / 3.35 TB/s;
+                  67 TFLOP/s fp32 / 3.35 TB/s / 3.9e12 exponentials a
+                  second (attention takes one per score);
   4. small        a tiny-config pipeline on the card against the same
                   pipeline on the CPU (plain versions), both bf16, with
                   each K2/K3/K5/K6 call on the card also held against its
@@ -70,6 +74,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# exponentials a second on the SFUs: 16 a clock on each of 132 SMs at
+# 1.83 GHz (the FlashAttention-3 paper's figure). Attention takes one exp2
+# per score, which at head width 40 (160 tensor FLOP a score) is the floor.
+PEAK_EXP = 3.9e12
 
 # Attention levels of SD-1.5 at 512x512: (tokens, channels); 8 heads each.
 LEVELS = [(4096, 320), (1024, 640), (256, 1280), (64, 1280)]
@@ -174,15 +182,34 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, peak: float, nbytes: float):
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound_fields(flops: float, peak: float, nbytes: float,
+                 exps: float = 0.0) -> dict:
+    """The least time of a kernel: the largest of its operations over their
+    peak rate, its bytes over the memory rate and its exponentials over the
+    SFUs' rate, with the term that wins."""
+    terms = dict(operations=flops / peak * 1e3, bytes=nbytes / PEAK_BYTES * 1e3,
+                 exponentials=exps / PEAK_EXP * 1e3)
+    by = max(terms, key=terms.get)
+    return dict(bound_ms=terms[by], bound_by=by, ops_ms=terms["operations"],
+                bytes_ms=terms["bytes"], exp_ms=terms["exponentials"])
 
 
-def bound_fields(flops: float, peak: float, nbytes: float) -> dict:
-    t, by = bound_ms(flops, peak, nbytes)
-    return dict(bound_ms=t, bound_by=by, ops_ms=flops / peak * 1e3,
-                bytes_ms=nbytes / PEAK_BYTES * 1e3)
+def attention_cost(b: int, heads: int, tq: int, tk: int, d: int,
+                   panels: int = 1):
+    """(FLOPs, bytes, exponentials) of softmax(q kᵀ/√d) v over `panels` K/V
+    panels: two products of 2·Tq·Tk·d FLOP each and one exponential per
+    score, per (batch, head, panel); q, k and v read once and o written
+    once, in bf16 (K3's reference panels are views of k and v)."""
+    c = heads * d
+    return (4.0 * b * heads * tq * tk * d * panels,
+            2.0 * (2 * b * tq * c + 2 * b * tk * c),
+            1.0 * b * heads * tq * tk * panels)
+
+
+def attention_bound(b, heads, tq, tk, d, panels=1) -> dict:
+    """`bound_fields` of one attention call on the tensor cores in bf16."""
+    flops, nbytes, exps = attention_cost(b, heads, tq, tk, d, panels)
+    return bound_fields(flops, PEAK_BF16, nbytes, exps)
 
 
 def attention_layer_counts(models):
@@ -194,6 +221,73 @@ def attention_layer_counts(models):
             if isinstance(mod, Attention) and mod.is_self:
                 counts.setdefault(name, []).append(mod_name)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: what the compiler made of the K2/K6 core
+# ---------------------------------------------------------------------------
+
+def _instantiation(symbol: str):
+    """'core<48>' / 'wide<512>' for a mangled flash_hopper.cu kernel name."""
+    import re
+    m = re.search(r"flash_core_kernel.*CoreILi(\d+)E", symbol)
+    if m:
+        return f"core<{m.group(1)}>"
+    return "wide<512>" if "flash_wide_kernel" in symbol else None
+
+
+def check_sass(build_log: str, out_dir: str) -> dict:
+    """Registers, spills and shared memory of every instantiation of the
+    K2/K6 core (from ptxas' report of this process's build, when it built),
+    and a count of HGMMA (wgmma) instructions in each one's SASS
+    (cuobjdump -sass of the library). Fails if one has none."""
+    import re
+    import shutil
+    from gaussctrl_tpu_torch.ops import _lib
+    so = _lib.library_path()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    insts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _instantiation(m.group(1))
+            if name:
+                insts[name] = dict(hgmma=0)
+        elif name and "HGMMA" in line:
+            insts[name]["hgmma"] += 1
+    ptxas, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"serialized.*function '(\S+)'", line)
+        if m and _instantiation(m.group(1)) in insts:
+            insts[_instantiation(m.group(1))]["wgmma_serialized"] = True
+            ptxas.append(line)
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _instantiation(m.group(1))
+        if not name or name not in insts:
+            continue
+        ptxas.append(line)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            insts[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            insts[name]["registers"] = int(m.group(1))
+    for name, rec in insts.items():
+        dp = int(name.split("<")[1][:-1])
+        rec["dynamic_smem_bytes"] = _lib.library().gc_flash_smem_bytes(dp)
+    rec = dict(phase="sass", library=os.path.basename(so),
+               ptxas_in_this_run=bool(ptxas), instantiations=insts)
+    emit(rec)
+    if out_dir:
+        with open(os.path.join(out_dir, "sass_k2_k6.txt"), "w") as f:
+            f.write("\n".join(ptxas) + "\n" + json.dumps(insts, indent=1) + "\n")
+    if len(insts) != 6 or not all(r["hgmma"] > 0 for r in insts.values()):
+        raise AssertionError(f"the K2/K6 core is not on wgmma: {insts}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -413,9 +507,6 @@ def check_k2(batch: int, reps: int):
                                               fa.attention_plain(q, k, v, HEADS)))
         if (t, c) in LEVELS:
             q, k, v = (_rand_bf16((batch, t, c), gen) for _ in range(3))
-            d = c // HEADS
-            flops = 4.0 * batch * HEADS * t * t * d
-            nbytes = 4.0 * batch * t * c * 2
             qs, ks, vs = (_sdpa_layout(x, HEADS) for x in (q, k, v))
             rec.update(
                 B_timed=batch,
@@ -424,7 +515,7 @@ def check_k2(batch: int, reps: int):
                                  max(1, reps // 5)),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs),
                                    reps))
-            rec.update(bound_fields(flops, PEAK_BF16, nbytes))
+            rec.update(attention_bound(batch, HEADS, t, t, c // HEADS))
         emit(rec)
         recs.append(rec)
     bad = [r["T"] for r in recs if not attn_ok(r)]
@@ -477,8 +568,7 @@ def check_k3(views: int, refs: int, reps: int):
                     plain_ms=cuda_ms(lambda: fa.cross_view_attention_plain(
                         q, k, v, HEADS, r, coeff, g), max(1, reps // 5)),
                     library_ms=cuda_ms(library, reps))
-                flops = 4.0 * b * HEADS * t * t * d * panels
-                rec.update(bound_fields(flops, PEAK_BF16, 4.0 * b * t * c * 2))
+                rec.update(attention_bound(b, HEADS, t, t, d, panels))
             emit(rec)
             recs.append(rec)
     bad = [(r["T"], r["self_coeff"]) for r in recs if not attn_ok(r)]
@@ -487,13 +577,15 @@ def check_k3(views: int, refs: int, reps: int):
     return recs
 
 
-def _time_std(rec, kernel, plain, library, args, flops, nbytes, reps):
+def _time_std(rec, kernel, plain, library, args, reps):
     """Time a K5/K6 call beside its plain version and the library call, and
-    add its bound (bf16 tensor-core operations or bytes)."""
+    add its bound (bf16 tensor-core operations, bytes or exponentials)."""
+    q, k, _, heads = args
     rec.update(kernel_ms=cuda_ms(lambda: kernel(*args), reps),
                plain_ms=cuda_ms(lambda: plain(*args), max(1, reps // 10)),
                library_ms=cuda_ms(library, reps),
-               **bound_fields(flops, PEAK_BF16, nbytes))
+               **attention_bound(q.shape[0], heads, q.shape[1], k.shape[1],
+                                 q.shape[2] // heads))
 
 
 def _sdpa(q, k, v, heads):
@@ -510,12 +602,6 @@ def _ref_views(g, f, t, c, gen):
     q = _rand_bf16((g, f * t, c), gen)
     kg, vg = (_rand_bf16((g, f, t, c), gen) for _ in range(2))
     return q, kg[:, 0], vg[:, 0]
-
-
-def _std_cost(b, tq, tk, c):
-    """FLOPs and bytes one attention call needs: two products of
-    2·Tq·Tk·C each; q, k, v read once and o written once, in bf16."""
-    return 4.0 * b * tq * tk * c, 2.0 * (2 * b * tq * c + 2 * b * tk * c)
 
 
 def check_k5(views: int, reps: int):
@@ -544,8 +630,7 @@ def check_k5(views: int, reps: int):
                    **attn_errors(fa.attention_full(*args), fa.attention_plain(*args)))
         if use == "ref" or b == b_edit:
             _time_std(rec, fa.attention_full, fa.attention_plain,
-                      _sdpa(*args), args, *_std_cost(b, q.shape[1], k.shape[1], c),
-                      reps)
+                      _sdpa(*args), args, reps)
         emit(rec)
         recs.append(rec)
     bad = [(r["use"], r["B"], r["T"]) for r in recs if not attn_ok(r)]
@@ -579,8 +664,7 @@ def check_k6(views: int, reps: int):
                                  fa.attention_stream_plain(*args)))
         if use != "tail":
             _time_std(rec, fa.attention_stream, fa.attention_stream_plain,
-                      _sdpa(*args), args, *_std_cost(b, q.shape[1], k.shape[1], c),
-                      reps)
+                      _sdpa(*args), args, reps)
         emit(rec)
         recs.append(rec)
     bad = [(r["use"], r["B"], r["T"], r["C"]) for r in recs if not attn_ok(r)]
@@ -1063,6 +1147,8 @@ def main() -> int:
         with open(os.path.join(args.out, "nvcc.log"), "w") as f:
             f.write(_lib.build_log)
 
+    sass = check_sass(_lib.build_log, args.out)
+
     # comparisons in full float32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1115,9 +1201,22 @@ def main() -> int:
                 total += rec[key] * (n_unet if rec["self_coeff"] else n_cn)
         return total
 
-    def bound_by(recs, coeff_of=None):
-        ops = step_sum(recs, "ops_ms", coeff_of)
-        return "operations" if ops >= step_sum(recs, "bytes_ms", coeff_of) else "bytes"
+    def bound_by(recs, weight):
+        """The term (operations, bytes, exponentials) that bounds the shapes
+        holding most of the step's bound; `weight(rec)` counts calls."""
+        share = {}
+        for rec in recs:
+            if "bound_by" in rec:
+                share[rec["bound_by"]] = (share.get(rec["bound_by"], 0.0)
+                                          + rec["bound_ms"] * weight(rec))
+        return max(share, key=share.get)
+
+    def layers_of(rec):
+        return sum(per_level[rec["T"]])
+
+    def k3_layers(rec):
+        n_unet, n_cn = per_level[rec["T"]]
+        return n_unet if rec["self_coeff"] else n_cn
 
     # K5 per edit step (the edit batch): the text cross-attention of every
     # transformer block, and r reference calls per 64-token layer
@@ -1128,7 +1227,7 @@ def main() -> int:
 
     k5_step = {key: sum(rec[key] * k5_calls(rec) for rec in k5 if key in rec)
                for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                           "ops_ms", "bytes_ms")}
+                           "ops_ms", "bytes_ms", "exp_ms")}
     # K6 per call of the main path: the VAE mid-block at B = views
     vae = next(rec for rec in k6 if rec["use"] == "vae")
 
@@ -1149,12 +1248,12 @@ def main() -> int:
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=None),
         dict(name="flash_attention_t", route="cuda",
-             source="gaussctrl_tpu_torch/csrc/attention.cu",
+             source="gaussctrl_tpu_torch/csrc/flash_hopper.cu",
              replaces="gaussctrl_tpu/ops/flash_attention.py:137",
              launches=launches["flash_attention_t"],
              max_abs_err=max(r["max_abs_err"] for r in k2),
              ms=step_sum(k2, "kernel_ms"), plain_ms=step_sum(k2, "plain_ms"),
-             bound_ms=step_sum(k2, "bound_ms"), bound_by=bound_by(k2),
+             bound_ms=step_sum(k2, "bound_ms"), bound_by=bound_by(k2, layers_of),
              library_ms=step_sum(k2, "library_ms")),
         dict(name="cross_view_attention", route="cuda",
              source="gaussctrl_tpu_torch/csrc/attention.cu",
@@ -1163,7 +1262,7 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in k3),
              ms=step_sum(k3, "kernel_ms", True),
              plain_ms=step_sum(k3, "plain_ms", True),
-             bound_ms=step_sum(k3, "bound_ms", True), bound_by=bound_by(k3, True),
+             bound_ms=step_sum(k3, "bound_ms", True), bound_by=bound_by(k3, k3_layers),
              library_ms=step_sum(k3, "library_ms", True)),
         dict(name="attention_full", route="cuda",
              source="gaussctrl_tpu_torch/csrc/attention_std.cu",
@@ -1172,11 +1271,10 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in k5),
              ms=k5_step["kernel_ms"], plain_ms=k5_step["plain_ms"],
              bound_ms=k5_step["bound_ms"],
-             bound_by=("operations" if k5_step["ops_ms"] >= k5_step["bytes_ms"]
-                       else "bytes"),
+             bound_by=bound_by(k5, k5_calls),
              library_ms=k5_step["library_ms"]),
         dict(name="attention_stream", route="cuda",
-             source="gaussctrl_tpu_torch/csrc/attention_std.cu",
+             source="gaussctrl_tpu_torch/csrc/flash_hopper.cu",
              replaces="gaussctrl_tpu/ops/flash_attention.py:40",
              launches=launches["attention_stream"],
              max_abs_err=max(r["max_abs_err"] for r in k6),
@@ -1190,7 +1288,7 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build=build, k1=k1, k4=k4, k2=k2, k3=k3,
-                           k5=k5, k6=k6, train=train, main_path=mp,
+                           k5=k5, k6=k6, sass=sass, train=train, main_path=mp,
                            composed=composed,
                            kernels=kernels, total_s=total_s),
                       f, indent=1)

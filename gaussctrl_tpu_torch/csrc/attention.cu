@@ -1,9 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a): the inversion-lane
-// self-attention (K2) and the fused cross-view attention of the edit lane (K3).
+// Flash-attention forward for Hopper (sm_90a): the fused cross-view
+// attention of the edit lane (K3). The inversion-lane self-attention (K2)
+// runs on the TMA/wgmma core in flash_hopper.cu.
 //
 // Replaces (JAX package, Pallas on TPU):
-//   K2  gaussctrl_tpu/ops/flash_attention.py  flash_attention_t /
-//       _attn_kernel_full_t — softmax(q kᵀ/√d) v per batch·head.
 //   K3  gaussctrl_tpu/ops/flash_attention.py  cross_view_attention /
 //       _cross_view_kernel — c·attn(q, k_self, v_self)
 //       + (1−c)/r·Σᵢ attn(q, k_refᵢ, v_refᵢ), one softmax per panel.
@@ -11,7 +10,8 @@
 // What bounds it on the H100: at the SD-1.5 shapes (T = 4096/1024/256/64,
 // head_dim 40/80/160) the work is 4·T²·d FLOP per (batch, head, panel)
 // against 4·T·d bytes moved per panel, far above the card's
-// ~295 FLOP/byte ridge: the kernel is bound by tensor-core operations.
+// ~295 FLOP/byte ridge: the kernel is bound by tensor-core operations (and
+// at d = 40 by the T² exponentials on the SFU).
 //
 // Design: one block of 4 warps owns a 64-row query block; each warp owns 16
 // rows. Q is staged through shared memory once and kept in registers as
@@ -28,7 +28,7 @@
 // per thread-owned output element) and the output is written once. Its grid
 // puts the query block fastest, then the view, then (group, head), so the
 // blocks that share one (group, head)'s reference K/V run together and find
-// them in L2. This first version uses neither TMA nor wgmma.
+// them in L2. This version uses neither TMA nor wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -227,51 +227,6 @@ __device__ __forceinline__ void load_q(const __nv_bfloat16* qbase, int q0,
   }
 }
 
-// K2: grid (query blocks, B·heads), query block fastest so one (b, h)'s K/V
-// is reused from L2 by consecutive blocks.
-template <int DP>
-__global__ void __launch_bounds__(NTHREADS)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ out, int Tq, int Tk, int C,
-                       int heads, int d, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + Layout<DP>::q_elems;
-  __nv_bfloat16* Vt = Ks + Layout<DP>::k_elems;
-
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / heads, h = blockIdx.y - (blockIdx.y / heads) * heads;
-  const __nv_bfloat16* qb = q + (size_t)b * Tq * C + h * d;
-  const __nv_bfloat16* kb = k + (size_t)b * Tk * C + h * d;
-  const __nv_bfloat16* vb = v + (size_t)b * Tk * C + h * d;
-
-  uint32_t qa[DP / 16][4];
-  load_q<DP>(qb, q0, Tq, C, d, Qs, qa);
-  float o[DP / 8][4];
-  RowState st;
-  attend_panel<DP>(kb, vb, Tk, C, d, scale_log2, Ks, Vt, qa, o, st);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const float i0 = 1.f / fmaxf(st.l0, 1e-30f), i1 = 1.f / fmaxf(st.l1, 1e-30f);
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  __nv_bfloat16* ob = out + (size_t)b * Tq * C + h * d;
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) {
-    const int col = nd * 8 + tig * 2;
-    if (col < d) {
-      if (row0 < Tq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * C + col) =
-            __floats2bfloat162_rn(o[nd][0] * i0, o[nd][1] * i0);
-      if (row1 < Tq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * C + col) =
-            __floats2bfloat162_rn(o[nd][2] * i1, o[nd][3] * i1);
-    }
-  }
-}
-
 // K3: grid (query blocks, F views, G·heads). Batch index of view f in CFG
 // group gi is gi·F + f; the references of a group are its first r views.
 template <int DP>
@@ -348,24 +303,6 @@ cross_view_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int DP>
-cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         int B, int Tq, int Tk, int C, int heads, int d,
-                         cudaStream_t stream) {
-  const size_t smem = Layout<DP>::bf16_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, B * heads);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
-  flash_attention_kernel<DP><<<grid, NTHREADS, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Tq, Tk, C, heads, d,
-      scale_log2);
-  return cudaGetLastError();
-}
-
-template <int DP>
 cudaError_t launch_cross_view(const void* q, const void* k, const void* v,
                               void* o, int G, int F, int T, int C, int heads,
                               int d, int r, float self_coeff,
@@ -400,16 +337,6 @@ cudaError_t launch_cross_view(const void* q, const void* k, const void* v,
     default: return (int)cudaErrorInvalidValue; \
   }
 
-extern "C" int gc_flash_attention(const void* q, const void* k, const void* v,
-                                  void* o, int B, int Tq, int Tk, int C,
-                                  int heads, void* stream) {
-  const int d = C / heads;
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || d % 8 != 0) return (int)cudaErrorInvalidValue;
-#define GC_CALL(DP) (int)launch_flash<DP>(q, k, v, o, B, Tq, Tk, C, heads, d, (cudaStream_t)stream)
-  GC_DISPATCH_DP(d, GC_CALL)
-#undef GC_CALL
-}
-
 extern "C" int gc_cross_view_attention(const void* q, const void* k,
                                        const void* v, void* o, int G, int F,
                                        int T, int C, int heads, int r,
@@ -420,12 +347,4 @@ extern "C" int gc_cross_view_attention(const void* q, const void* k,
 #define GC_CALL(DP) (int)launch_cross_view<DP>(q, k, v, o, G, F, T, C, heads, d, r, self_coeff, (cudaStream_t)stream)
   GC_DISPATCH_DP(d, GC_CALL)
 #undef GC_CALL
-}
-
-extern "C" int gc_supported_head_dim(int d) {
-  if (d % 8 != 0) return 0;
-  switch ((d + 15) / 16 * 16) {
-    case 16: case 32: case 48: case 80: case 160: return 1;
-    default: return 0;
-  }
 }

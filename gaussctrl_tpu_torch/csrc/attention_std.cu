@@ -1,48 +1,32 @@
-// Standard-layout attention for Hopper (sm_90a): the single-shot kernel (K5)
-// and the streaming kernel (K6). Both compute softmax(q kᵀ/√d) v per
-// batch·head with Tq ≠ Tk allowed, on bf16 inputs in the JAX layout
-// [B, T, C] (heads side by side in C), with fp32 scores, max and sum; P is
-// rounded to bf16 only as the input of the second product, as the JAX
-// kernels do, and both query and key tails are masked.
+// Standard-layout single-shot attention for Hopper (sm_90a): K5. It
+// computes softmax(q kᵀ/√d) v per batch·head with Tq ≠ Tk allowed, on bf16
+// inputs in the JAX layout [B, T, C] (heads side by side in C), with fp32
+// scores, max and sum; P is rounded to bf16 only as the input of the second
+// product, as the JAX kernel does, and both query and key tails are masked.
+// The streaming kernel (K6) runs on the TMA/wgmma core in flash_hopper.cu.
 //
 // Replaces (JAX package, Pallas on TPU):
 //   K5  gaussctrl_tpu/ops/flash_attention.py  flash_attention(kernel="full")
 //       / _attn_kernel_full — the whole [bq, Tk] score panel on chip.
-//   K6  gaussctrl_tpu/ops/flash_attention.py  flash_attention(kernel="stream")
-//       / _flash_kernel — online softmax over K/V blocks.
 //
-// What bounds them on the H100. K5's shapes are the text cross-attention
+// What bounds it on the H100. K5's shapes are the text cross-attention
 // (Tk = 77) and the composed cross-view references at t = 64: 4·Tq·Tk·d FLOP
 // against about 4·Tq·d bytes, some 77 FLOP/byte, far under the card's ~295
 // FLOP/byte ridge, so K5 is bound by bytes: it reads q once, K/V once per
-// query block (from L2 after the first), and writes o once. K6's main shape
-// is the VAE mid-block (one head of width 512 over 4096 tokens), 4·T²·d FLOP
-// against 4·T·d bytes: bound by tensor-core operations.
+// query block (from L2 after the first), and writes o once.
 //
-// Design. Both run a grid (query blocks, B·heads), query block fastest, so
-// the blocks of one (batch, head) share its K/V through L2. Products run on
-// the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); V is
+// Design. A grid (query blocks, B·heads), query block fastest, so the
+// blocks of one (batch, head) share its K/V through L2. Products run on the
+// tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); V is
 // stored transposed in shared memory so that both products read 32-bit
 // fragment pairs; head_dim is padded to a multiple of 16 in shared memory
 // only (zero fill). Batch strides are arguments, so a view such as one
-// reference of a [G, F, T, C] tensor is read in place.
-//
-// K5, single shot: one block of 4 warps owns 64 query rows, and holds all of
-// K and V of its (batch, head) plus the whole [64, Tk] fp32 score panel in
-// shared memory. Each warp computes its 16 rows' scores in one pass of QKᵀ,
-// one max/exp/sum over the panel, and one P·V of depth Tk. The wrapper takes
-// it only where the panel and K/V fit a block's 227 KB.
-//
-// K6, streaming: 64-key K/V tiles with a running max and sum. A block owns
-// 64 query rows with 4·DS warps. Warp w serves row group w % 4 (16 rows) and
-// part w / 4: in QKᵀ the part is a slice of the tile's keys, in P·V a slice
-// of the head's columns, so the O accumulator is split over DS warps. DS is
-// 1 for head widths up to 160 and 4 for the VAE's 512, where one warp would
-// need ~256 accumulator registers a thread. The warps of a row group share
-// their partial row maxima through shared memory, and P goes through shared
-// memory as bf16. Q stays in shared memory (at width 512 its fragments would
-// not fit in registers). This first version uses neither TMA nor wgmma and
-// does not double-buffer the K/V tiles.
+// reference of a [G, F, T, C] tensor is read in place. One block of 4 warps
+// owns 64 query rows, and holds all of K and V of its (batch, head) plus the
+// whole [64, Tk] fp32 score panel in shared memory. Each warp computes its
+// 16 rows' scores in one pass of QKᵀ, one max/exp/sum over the panel, and
+// one P·V of depth Tk. The wrapper takes it only where the panel and K/V fit
+// a block's 227 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,7 +35,6 @@
 namespace {
 
 constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per K/V tile (K6)
 constexpr float NEG_BIG = -1e30f;
 constexpr int SMEM_MAX = 232448; // 227 KB, the most a block may take
 
@@ -251,180 +234,6 @@ attention_full_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// K6 layout for padded width DP split over DS warps per row group.
-template <int DP, int DS>
-struct Stream {
-  static constexpr int NT = 128 * DS;     // threads: 4 row groups x DS parts
-  static constexpr int KW = BK / DS;      // keys of a warp in QKᵀ
-  static constexpr int CW = DP / DS;      // columns of a warp in P·V
-  static constexpr int QS = DP + 8;       // bf16 row stride of Q and K
-  static constexpr int VS = BK + 8;       // bf16 row stride of Vᵀ and P
-  static constexpr size_t smem =
-      sizeof(__nv_bfloat16) * ((size_t)BQ * QS + (size_t)BK * QS +
-                               (size_t)DP * VS + (size_t)BQ * VS) +
-      sizeof(float) * (size_t)DS * BQ;
-  static_assert(KW % 8 == 0 && CW % 8 == 0, "warp slices of whole n-tiles");
-  static_assert(smem <= (size_t)SMEM_MAX, "K6 tile exceeds shared memory");
-};
-
-// K6: grid (query blocks, B·heads), 4·DS warps.
-template <int DP, int DS>
-__global__ void __launch_bounds__(Stream<DP, DS>::NT)
-attention_stream_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ out, long long q_bs,
-                        long long kv_bs, int Tq, int Tk, int C, int heads,
-                        int d, float scale_log2) {
-  using L = Stream<DP, DS>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * L::QS;
-  __nv_bfloat16* Vt = Ks + BK * L::QS;
-  __nv_bfloat16* Ps = Vt + DP * L::VS;
-  float* red = reinterpret_cast<float*>(Ps + BQ * L::VS);  // [DS][BQ]
-
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / heads, h = blockIdx.y - b * heads;
-  const __nv_bfloat16* qb = q + b * q_bs + h * d;
-  const __nv_bfloat16* kb = k + b * kv_bs + h * d;
-  const __nv_bfloat16* vb = v + b * kv_bs + h * d;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int rg = warp & 3, part = warp >> 2;
-  const int lr0 = rg * 16 + g, lr1 = lr0 + 8;  // the thread's rows in the block
-
-  load_rows<DP>(Qs, L::QS, qb, q0, BQ, Tq, C, d);
-
-  float o[L::CW / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < L::CW / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  float m0 = NEG_BIG, m1 = NEG_BIG;  // running max of the rows (log2 domain)
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
-
-  for (int kt0 = 0; kt0 < Tk; kt0 += BK) {
-    __syncthreads();  // every warp is done with the previous tile and P
-    load_rows<DP>(Ks, L::QS, kb, kt0, BK, Tk, C, d);
-    load_rows_t<DP>(Vt, L::VS, vb, kt0, BK, Tk, C, d);
-    __syncthreads();
-
-    // S for rows rg, keys [part·KW, (part + 1)·KW) of the tile
-    float s[L::KW / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < L::KW / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll 4
-    for (int kc = 0; kc < DP / 16; ++kc) {
-      uint32_t qa[4];
-      frag_a(qa, Qs, L::QS, rg * 16, kc * 16);
-#pragma unroll
-      for (int nt = 0; nt < L::KW / 8; ++nt) {
-        const __nv_bfloat16* kp =
-            Ks + (part * L::KW + nt * 8 + g) * L::QS + kc * 16 + tig * 2;
-        mma_bf16(s[nt], qa, ld32(kp), ld32(kp + 8));
-      }
-    }
-    float mx0 = NEG_BIG, mx1 = NEG_BIG;
-#pragma unroll
-    for (int nt = 0; nt < L::KW / 8; ++nt) {
-      const int key = kt0 + part * L::KW + nt * 8 + tig * 2;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[nt][e] = key + (e & 1) < Tk ? s[nt][e] * scale_log2 : NEG_BIG;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    if (DS > 1) {  // the tile's row maxima over the DS parts
-      if (tig == 0) {
-        red[part * BQ + lr0] = mx0;
-        red[part * BQ + lr1] = mx1;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int p = 0; p < DS; ++p) {
-        mx0 = fmaxf(mx0, red[p * BQ + lr0]);
-        mx1 = fmaxf(mx1, red[p * BQ + lr1]);
-      }
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < L::KW / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn0);
-      s[nt][1] = exp2f(s[nt][1] - mn0);
-      s[nt][2] = exp2f(s[nt][2] - mn1);
-      s[nt][3] = exp2f(s[nt][3] - mn1);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
-      const int key = part * L::KW + nt * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(Ps + lr0 * L::VS + key) = pack_bf16(s[nt][0], s[nt][1]);
-      *reinterpret_cast<uint32_t*>(Ps + lr1 * L::VS + key) = pack_bf16(s[nt][2], s[nt][3]);
-    }
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-#pragma unroll
-    for (int nd = 0; nd < L::CW / 8; ++nd) {
-      o[nd][0] *= a0;
-      o[nd][1] *= a0;
-      o[nd][2] *= a1;
-      o[nd][3] *= a1;
-    }
-    __syncthreads();  // P of all parts is in shared memory
-
-    // O[rows rg, columns part·CW ...] += P · V over the tile's keys
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t pa[4];
-      frag_a(pa, Ps, L::VS, rg * 16, kc * 16);
-#pragma unroll
-      for (int nd = 0; nd < L::CW / 8; ++nd) {
-        const __nv_bfloat16* vp =
-            Vt + (part * L::CW + nd * 8 + g) * L::VS + kc * 16 + tig * 2;
-        mma_bf16(o[nd], pa, ld32(vp), ld32(vp + 8));
-      }
-    }
-  }
-
-  // full row sums: over the quad, then over the DS parts
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  if (DS > 1) {  // (every part read the last maxima before the P barrier)
-    if (tig == 0) {
-      red[part * BQ + lr0] = l0;
-      red[part * BQ + lr1] = l1;
-    }
-    __syncthreads();
-    l0 = l1 = 0.f;
-#pragma unroll
-    for (int p = 0; p < DS; ++p) {
-      l0 += red[p * BQ + lr0];
-      l1 += red[p * BQ + lr1];
-    }
-  }
-
-  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
-  const int row0 = q0 + lr0, row1 = q0 + lr1;
-  __nv_bfloat16* ob = out + b * q_bs + h * d;
-#pragma unroll
-  for (int nd = 0; nd < L::CW / 8; ++nd) {
-    const int col = part * L::CW + nd * 8 + tig * 2;
-    if (col < d) {
-      if (row0 < Tq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * C + col) =
-            __floats2bfloat162_rn(o[nd][0] * i0, o[nd][1] * i0);
-      if (row1 < Tq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * C + col) =
-            __floats2bfloat162_rn(o[nd][2] * i1, o[nd][3] * i1);
-    }
-  }
-}
-
 template <int DP>
 cudaError_t launch_full(const void* q, const void* k, const void* v, void* o,
                         long long q_bs, long long kv_bs, int B, int Tq, int Tk,
@@ -444,25 +253,6 @@ cudaError_t launch_full(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int DP, int DS>
-cudaError_t launch_stream(const void* q, const void* k, const void* v, void* o,
-                          long long q_bs, long long kv_bs, int B, int Tq,
-                          int Tk, int C, int heads, int d,
-                          cudaStream_t stream) {
-  using L = Stream<DP, DS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_stream_kernel<DP, DS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, B * heads);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)d);
-  attention_stream_kernel<DP, DS><<<grid, L::NT, L::smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, q_bs, kv_bs, Tq, Tk, C,
-      heads, d, scale_log2);
-  return cudaGetLastError();
-}
-
 bool valid(int B, int Tq, int Tk, int C, int heads) {
   return B > 0 && Tq > 0 && Tk > 0 && heads > 0 && C % heads == 0 &&
          (C / heads) % 8 == 0 && B * heads <= 65535;
@@ -472,8 +262,7 @@ bool valid(int B, int Tq, int Tk, int C, int heads) {
 
 // Head width d (a multiple of 8) runs in the instantiation whose padded width
 // DP = round_up(d, 16) matches: d = 8/16/32 (the tiny and nano configs) and
-// 40/80/160 (SD-1.5) for both kernels, and 512 (the SD VAE's mid-block) for
-// K6. q may have its own batch stride; k and v share one.
+// 40/80/160 (SD-1.5). q may have its own batch stride; k and v share one.
 extern "C" int gc_attention_full(const void* q, const void* k, const void* v,
                                  void* o, long long q_bs, long long kv_bs,
                                  int B, int Tq, int Tk, int C, int heads,
@@ -487,24 +276,6 @@ extern "C" int gc_attention_full(const void* q, const void* k, const void* v,
     case 48: return (int)launch_full<48>(q, k, v, o, q_bs, kv_bs, B, Tq, Tk, C, heads, d, s);
     case 80: return (int)launch_full<80>(q, k, v, o, q_bs, kv_bs, B, Tq, Tk, C, heads, d, s);
     case 160: return (int)launch_full<160>(q, k, v, o, q_bs, kv_bs, B, Tq, Tk, C, heads, d, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int gc_attention_stream(const void* q, const void* k, const void* v,
-                                   void* o, long long q_bs, long long kv_bs,
-                                   int B, int Tq, int Tk, int C, int heads,
-                                   void* stream) {
-  if (!valid(B, Tq, Tk, C, heads)) return (int)cudaErrorInvalidValue;
-  const int d = C / heads;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch ((d + 15) / 16 * 16) {
-    case 16: return (int)launch_stream<16, 1>(q, k, v, o, q_bs, kv_bs, B, Tq, Tk, C, heads, d, s);
-    case 32: return (int)launch_stream<32, 1>(q, k, v, o, q_bs, kv_bs, B, Tq, Tk, C, heads, d, s);
-    case 48: return (int)launch_stream<48, 1>(q, k, v, o, q_bs, kv_bs, B, Tq, Tk, C, heads, d, s);
-    case 80: return (int)launch_stream<80, 1>(q, k, v, o, q_bs, kv_bs, B, Tq, Tk, C, heads, d, s);
-    case 160: return (int)launch_stream<160, 1>(q, k, v, o, q_bs, kv_bs, B, Tq, Tk, C, heads, d, s);
-    case 512: return (int)launch_stream<512, 4>(q, k, v, o, q_bs, kv_bs, B, Tq, Tk, C, heads, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,11 +2,13 @@
 
 All sources under `gaussctrl_tpu_torch/csrc/` are compiled by one `nvcc` call
 for `sm_90a` into one shared library with a plain C interface, which is
-loaded with `ctypes`. `--threads 0` lets that call compile the sources in
-parallel, one thread per CPU. The build runs at first use and is keyed by a
-hash of the sources and flags, so a changed source rebuilds and an unchanged
-one is reused. The output directory (`gaussctrl_tpu_torch/_build/`) is
-git-ignored.
+loaded with `ctypes`. The TMA kernels fetch libcuda's tensor-map encoder
+through the runtime (`cudaGetDriverEntryPointByVersion`), so no link flag
+beyond nvcc's defaults is needed. `--threads 0` lets that call compile the
+sources in parallel, one thread per CPU. The build runs at first use and is
+keyed by a hash of the sources (`*.cu` and the headers `*.cuh`) and flags,
+so a changed source rebuilds and an unchanged one is reused. The output
+directory (`gaussctrl_tpu_torch/_build/`) is git-ignored.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ _SIGNATURES = {
     "gc_attention_full": [_P] * 4 + [_L, _L] + [_I] * 5 + [_P],
     "gc_attention_stream": [_P] * 4 + [_L, _L] + [_I] * 5 + [_P],
     "gc_supported_head_dim": [_I],
+    "gc_flash_smem_bytes": [_I],
 }
 
 _lib = None
@@ -53,7 +56,8 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                     + glob.glob(os.path.join(CSRC, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
         with open(s, "rb") as f:

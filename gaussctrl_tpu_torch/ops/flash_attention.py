@@ -2,8 +2,9 @@
 (standard-layout single shot) and K6 (streaming), and `flash_attention`,
 which dispatches among K2, K5 and K6.
 
-Counterpart of `gaussctrl_tpu/ops/flash_attention.py`. K2 and K3 are CUDA
-C++ in `csrc/attention.cu`, K5 and K6 in `csrc/attention_std.cu`; each is
+Counterpart of `gaussctrl_tpu/ops/flash_attention.py`. K2 and K6 run on one
+TMA/wgmma flash core in `csrc/flash_hopper.cu`, K3 is CUDA C++ in
+`csrc/attention.cu` and K5 in `csrc/attention_std.cu`; each is
 launched through a wrapper that keeps the JAX layout `[B, T, C]` (heads side
 by side in C), so no relayout copy is made. Beside each wrapper is its plain
 PyTorch version; the wrapper takes it only for a tensor on the CPU. On a
@@ -20,7 +21,8 @@ from gaussctrl_tpu_torch.ops import _lib, launch_counts
 
 # shared memory one block may take on the H100 (227 KB)
 SMEM_PER_BLOCK = 232448
-# K5/K6 query rows per block and K6 keys per tile (csrc/attention_std.cu)
+# K5 query rows per block (csrc/attention_std.cu), and the keys per block of
+# the streaming plain version (the JAX `_flash_kernel`'s block)
 _BQ, _BK = 64, 64
 # head widths up to which the transposed single shot (K2) is taken for
 # square self-attention; wider heads (the VAE's 512) go on to K5/K6
@@ -254,7 +256,7 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      heads: int) -> torch.Tensor:
-    """K6: attention as an online softmax over 64-key K/V tiles, any Tk.
+    """K6: attention as an online softmax over K/V tiles, any Tk.
     q [B,Tq,C], k/v [B,Tk,C] → [B,Tq,C]. CPU tensors take
     `attention_stream_plain`."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":

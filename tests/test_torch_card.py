@@ -1,4 +1,4 @@
-"""Card-only tests of the standard-layout attention kernels K5
+"""Card-only tests of the attention kernels K2 (`flash_attention_t`), K5
 (`attention_full`) and K6 (`attention_stream`) against their plain versions.
 
 This file imports no JAX, so it runs on a machine with the card and
@@ -83,4 +83,57 @@ def test_stream_kernel_vae_width_on_card():
     before = launch_counts["attention_stream"]
     _assert_close_to_plain(fa.attention_stream(q, k, v, 1),
                            fa.attention_stream_plain(q, k, v, 1))
+    assert launch_counts["attention_stream"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [64, 100, 200, 1024])
+@pytest.mark.parametrize("d", [16, 32, 40, 80, 160])
+def test_flash_kernel_widths_match_plain_on_card(d, t):
+    """K2 (the TMA/wgmma core) at every head width it is built for, 8 heads,
+    with query and key tails (T = 100, 200) and a half-empty 128-row block
+    (T = 64), against attention_plain, bf16."""
+    dev = _card()
+    q, k, v = (torch.tensor(x).to(dev, torch.bfloat16)
+               for x in _qkv((2, t, 8 * d), (2, t, 8 * d), 43 + d + t))
+    before = launch_counts["flash_attention_t"]
+    _assert_close_to_plain(fa.flash_attention_t(q, k, v, 8),
+                           fa.attention_plain(q, k, v, 8))
+    assert launch_counts["flash_attention_t"] == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_kernel_4096_tokens_on_card():
+    """K2 at the inversion's largest level: B = 2, T = 4096, 8 heads of 40."""
+    dev = _card()
+    q, k, v = (torch.tensor(x).to(dev, torch.bfloat16)
+               for x in _qkv((2, 4096, 320), (2, 4096, 320), 47))
+    _assert_close_to_plain(fa.flash_attention_t(q, k, v, 8),
+                           fa.attention_plain(q, k, v, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [100, 4096])
+def test_stream_kernel_wide_matches_plain_on_card(t):
+    """K6's wide variant (one head of 512, the VAE mid-block) with a tail
+    (T = 100) and at the VAE's 4096 tokens."""
+    dev = _card()
+    q, k, v = (torch.tensor(x).to(dev, torch.bfloat16)
+               for x in _qkv((2, t, 512), (2, t, 512), 53 + t))
+    _assert_close_to_plain(fa.attention_stream(q, k, v, 1),
+                           fa.attention_stream_plain(q, k, v, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [100, 256])
+def test_stream_kernel_strided_references_tq_ne_tk_on_card(t):
+    """K6 on the core at width 40 with Tq = 4·T queries against one
+    reference's T keys, read in place from a [G, F, T, C] tensor."""
+    dev = _card()
+    q, k, v = (torch.tensor(x).to(dev, torch.bfloat16)
+               for x in _qkv((2, 4 * t, 320), (2, 4, t, 320), 59 + t))
+    before = launch_counts["attention_stream"]
+    _assert_close_to_plain(fa.attention_stream(q, k[:, 2], v[:, 2], 8),
+                           fa.attention_stream_plain(q, k[:, 2].contiguous(),
+                                                     v[:, 2].contiguous(), 8))
     assert launch_counts["attention_stream"] == before + 1
