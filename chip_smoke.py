@@ -12,8 +12,9 @@ Phases, each printing one JSON line with its wall time:
   2. build        the kernel library (one nvcc call over every csrc/*.cu,
                   compiling them in parallel); then `sass`: registers,
                   spills, shared memory and the count of HGMMA (wgmma)
-                  instructions of every instantiation of the K2/K6 core,
-                  from ptxas and cuobjdump, failing if one has none;
+                  instructions of every instantiation of the attention
+                  kernels (K2/K6, K3, K5), from ptxas and cuobjdump, failing
+                  if one is missing, has none or was serialized by ptxas;
   3. kernels      K1 (splat blend), K4 (its backward), K2 (inversion
                   attention), K3 (cross-view attention), K5 (single-shot
                   standard-layout attention: text cross-attention, composed
@@ -151,7 +152,8 @@ def fused_levels():
 
 def std_kernel(d: int, tk: int) -> str:
     """The kernel `flash_attention(kernel="auto")` takes for a call that is
-    not square self-attention: K5 where its panel fits, else K6."""
+    not square self-attention: K5 where the keys fit its one key tile,
+    else K6."""
     from gaussctrl_tpu_torch.ops import flash_attention as fa
     return "attention_full" if fa.full_fits(d, tk) else "attention_stream"
 
@@ -224,23 +226,52 @@ def attention_layer_counts(models):
 
 
 # ---------------------------------------------------------------------------
-# phase 2b: what the compiler made of the K2/K6 core
+# phase 2b: what the compiler made of the attention kernels
 # ---------------------------------------------------------------------------
 
+# padded head widths of the TMA/wgmma attention kernels, and K5's key tiles
+CORE_WIDTHS = (16, 32, 48, 80, 160)
+FULL_KEY_TILES = (80, 128)
+# every instantiation: the K2/K6 core and K6's wide variant, K3, K5
+ATTENTION_INSTANTIATIONS = (
+    [f"core<{w}>" for w in CORE_WIDTHS] + ["wide<512>"]
+    + [f"xview<{w}>" for w in CORE_WIDTHS]
+    + [f"full<{w},{nk}>" for w in CORE_WIDTHS for nk in FULL_KEY_TILES])
+
+
 def _instantiation(symbol: str):
-    """'core<48>' / 'wide<512>' for a mangled flash_hopper.cu kernel name."""
+    """'core<48>' / 'wide<512>' (K2/K6), 'xview<48>' (K3) or 'full<48,80>'
+    (K5) for a mangled kernel name, else None."""
     import re
-    m = re.search(r"flash_core_kernel.*CoreILi(\d+)E", symbol)
-    if m:
-        return f"core<{m.group(1)}>"
+    for pattern, name in ((r"flash_core_kernel.*CoreILi(\d+)E", "core<{}>"),
+                          (r"cross_view_kernel.*XViewILi(\d+)E", "xview<{}>"),
+                          (r"attention_full_kernel.*FullILi(\d+)ELi(\d+)E",
+                           "full<{},{}>")):
+        m = re.search(pattern, symbol)
+        if m:
+            return name.format(*m.groups())
     return "wide<512>" if "flash_wide_kernel" in symbol else None
+
+
+def _smem_bytes(lib, name: str) -> int:
+    """Dynamic shared memory of an instantiation, from the library."""
+    kind, args = name[:-1].split("<")
+    nums = [int(x) for x in args.split(",")]
+    if kind == "xview":
+        return lib.gc_cross_view_smem_bytes(*nums)
+    if kind == "full":
+        return lib.gc_attention_full_smem_bytes(*nums)
+    return lib.gc_flash_smem_bytes(*nums)
 
 
 def check_sass(build_log: str, out_dir: str) -> dict:
     """Registers, spills and shared memory of every instantiation of the
-    K2/K6 core (from ptxas' report of this process's build, when it built),
-    and a count of HGMMA (wgmma) instructions in each one's SASS
-    (cuobjdump -sass of the library). Fails if one has none."""
+    attention kernels (K2/K6 core and wide variant, K3, K5; from ptxas'
+    report of this process's build, when it built), any note of ptxas that
+    it serialized an instantiation's wgmma, and a count of HGMMA (wgmma)
+    instructions in each one's SASS (cuobjdump -sass of the library). Fails
+    unless every expected instantiation is there, each with HGMMA and none
+    serialized."""
     import re
     import shutil
     from gaussctrl_tpu_torch.ops import _lib
@@ -277,16 +308,18 @@ def check_sass(build_log: str, out_dir: str) -> dict:
         if m:
             insts[name]["registers"] = int(m.group(1))
     for name, rec in insts.items():
-        dp = int(name.split("<")[1][:-1])
-        rec["dynamic_smem_bytes"] = _lib.library().gc_flash_smem_bytes(dp)
+        rec["dynamic_smem_bytes"] = _smem_bytes(_lib.library(), name)
     rec = dict(phase="sass", library=os.path.basename(so),
                ptxas_in_this_run=bool(ptxas), instantiations=insts)
     emit(rec)
     if out_dir:
-        with open(os.path.join(out_dir, "sass_k2_k6.txt"), "w") as f:
+        with open(os.path.join(out_dir, "sass.txt"), "w") as f:
             f.write("\n".join(ptxas) + "\n" + json.dumps(insts, indent=1) + "\n")
-    if len(insts) != 6 or not all(r["hgmma"] > 0 for r in insts.values()):
-        raise AssertionError(f"the K2/K6 core is not on wgmma: {insts}")
+    if (sorted(insts) != sorted(ATTENTION_INSTANTIATIONS)
+            or not all(r["hgmma"] > 0 and not r.get("wgmma_serialized")
+                       for r in insts.values())):
+        raise AssertionError(f"the attention kernels are not all on "
+                             f"unserialized wgmma: {insts}")
     return rec
 
 
@@ -607,9 +640,9 @@ def _ref_views(g, f, t, c, gen):
 def check_k5(views: int, reps: int):
     """K5 at every text cross-attention level (Tk = 77; the edit batch
     B = 2·(refs + chunk), timed, and the inversion batch B = views) and at
-    the composed references of each level where its panel fits (64 tokens:
-    G = 2, 8·64 queries against one reference's 64 keys, k/v strided
-    views), timed, against attention_plain."""
+    the composed references of each level where the keys fit its key tile
+    (64 tokens: G = 2, 8·64 queries against one reference's 64 keys, k/v
+    strided views), timed, against attention_plain."""
     import torch
     from gaussctrl_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device=DEVICE).manual_seed(5)
@@ -642,7 +675,7 @@ def check_k5(views: int, reps: int):
 def check_k6(views: int, reps: int):
     """K6 at the VAE mid-block (B = views, T = 4096, one head of 512),
     timed; at the composed references of each level where `auto` picks it
-    (K5's panel does not fit: 4096, 1024, 256), timed; and at tails
+    (the keys pass K5's tile: 4096, 1024, 256), timed; and at tails
     (T = 100, at widths 40 and 512), against attention_stream_plain."""
     import torch
     from gaussctrl_tpu_torch.ops import flash_attention as fa
@@ -731,10 +764,10 @@ def check_small():
     each K2/K3/K5/K6 call is also held against its plain version on its own
     inputs, which covers the tiny config's head widths (16 and 32). The
     tiny UNet attends at 64 and 16 tokens, none of which is a fused level
-    and all of whose shapes fit K5's panel; so on both sides the 64-token
-    level is made fused (K3) and the references of the composed 16-token
-    level are sent to K6 (kernel="stream"), so that every attention kernel
-    runs: K2 in the inversion, the composed self branch and the VAE
+    and all of whose key lists fit K5's key tile; so on both sides the
+    64-token level is made fused (K3) and the references of the composed
+    16-token level are sent to K6 (kernel="stream"), so that every attention
+    kernel runs: K2 in the inversion, the composed self branch and the VAE
     mid-block, K5 in the text cross-attention."""
     import torch
     from gaussctrl_tpu_torch.diffusion import processors
@@ -1231,41 +1264,42 @@ def main() -> int:
     # K6 per call of the main path: the VAE mid-block at B = views
     vae = next(rec for rec in k6 if rec["use"] == "vae")
 
+    # `redesigned`: on the TMA + wgmma core of csrc/flash_core.cuh
     launches = mp["launches"]
     kernels = [
-        dict(name="splat_blend_fwd", route="cuda",
+        dict(name="splat_blend_fwd", route="cuda", redesigned=False,
              source="gaussctrl_tpu_torch/csrc/splat_blend_fwd.cu",
              replaces="gaussctrl_tpu/ops/splat_blend.py:218",
              launches=launches["splat_blend_fwd"],
              max_abs_err=k1["max_abs_err"], ms=k1["kernel_ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
-        dict(name="splat_blend_bwd", route="cuda",
+        dict(name="splat_blend_bwd", route="cuda", redesigned=False,
              source="gaussctrl_tpu_torch/csrc/splat_blend_bwd.cu",
              replaces="gaussctrl_tpu/ops/splat_blend.py:261",
              launches=launches["splat_blend_bwd"],
              max_abs_err=k4["max_abs_err"], ms=k4["kernel_ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=None),
-        dict(name="flash_attention_t", route="cuda",
+        dict(name="flash_attention_t", route="cuda", redesigned=True,
              source="gaussctrl_tpu_torch/csrc/flash_hopper.cu",
-             replaces="gaussctrl_tpu/ops/flash_attention.py:137",
+             replaces="gaussctrl_tpu/ops/flash_attention.py:106",
              launches=launches["flash_attention_t"],
              max_abs_err=max(r["max_abs_err"] for r in k2),
              ms=step_sum(k2, "kernel_ms"), plain_ms=step_sum(k2, "plain_ms"),
              bound_ms=step_sum(k2, "bound_ms"), bound_by=bound_by(k2, layers_of),
              library_ms=step_sum(k2, "library_ms")),
-        dict(name="cross_view_attention", route="cuda",
-             source="gaussctrl_tpu_torch/csrc/attention.cu",
-             replaces="gaussctrl_tpu/ops/flash_attention.py:248",
+        dict(name="cross_view_attention", route="cuda", redesigned=True,
+             source="gaussctrl_tpu_torch/csrc/cross_view_hopper.cu",
+             replaces="gaussctrl_tpu/ops/flash_attention.py:194",
              launches=launches["cross_view_attention"],
              max_abs_err=max(r["max_abs_err"] for r in k3),
              ms=step_sum(k3, "kernel_ms", True),
              plain_ms=step_sum(k3, "plain_ms", True),
              bound_ms=step_sum(k3, "bound_ms", True), bound_by=bound_by(k3, k3_layers),
              library_ms=step_sum(k3, "library_ms", True)),
-        dict(name="attention_full", route="cuda",
-             source="gaussctrl_tpu_torch/csrc/attention_std.cu",
+        dict(name="attention_full", route="cuda", redesigned=True,
+             source="gaussctrl_tpu_torch/csrc/attention_full_hopper.cu",
              replaces="gaussctrl_tpu/ops/flash_attention.py:81",
              launches=launches["attention_full"],
              max_abs_err=max(r["max_abs_err"] for r in k5),
@@ -1273,7 +1307,7 @@ def main() -> int:
              bound_ms=k5_step["bound_ms"],
              bound_by=bound_by(k5, k5_calls),
              library_ms=k5_step["library_ms"]),
-        dict(name="attention_stream", route="cuda",
+        dict(name="attention_stream", route="cuda", redesigned=True,
              source="gaussctrl_tpu_torch/csrc/flash_hopper.cu",
              replaces="gaussctrl_tpu/ops/flash_attention.py:40",
              launches=launches["attention_stream"],

@@ -6,9 +6,9 @@ K2 (`FlashSelfAttnProcessor`), the edit lane (`CrossViewAttnProcessor`)
 through the fused K3 at the token levels of `_XVIEW_FUSED_DEFAULT`, and
 elsewhere, or with `allow_fused=False`, through the composed route: the
 self branch through `flash_attention` (K2) and the references through
-`_grouped_ref_attention` (K5, or K6 where K5's panel does not fit). The
-JAX package's environment switches are not carried over; on the CPU the
-kernel wrappers take their plain versions.
+`_grouped_ref_attention` (K5, or K6 where the keys pass K5's one key
+tile). The JAX package's environment switches are not carried over; on the
+CPU the kernel wrappers take their plain versions.
 
     out = c · selfattn(q, k, v) + (1 − c) · mean_r attn(q, k_ref[r], v_ref[r])
 

@@ -2,7 +2,7 @@
 
 All sources under `gaussctrl_tpu_torch/csrc/` are compiled by one `nvcc` call
 for `sm_90a` into one shared library with a plain C interface, which is
-loaded with `ctypes`. The TMA kernels fetch libcuda's tensor-map encoder
+loaded with `ctypes`. The attention kernels fetch libcuda's tensor-map encoder
 through the runtime (`cudaGetDriverEntryPointByVersion`), so no link flag
 beyond nvcc's defaults is needed. `--threads 0` lets that call compile the
 sources in parallel, one thread per CPU. The build runs at first use and is
@@ -40,6 +40,8 @@ _SIGNATURES = {
     "gc_attention_stream": [_P] * 4 + [_L, _L] + [_I] * 5 + [_P],
     "gc_supported_head_dim": [_I],
     "gc_flash_smem_bytes": [_I],
+    "gc_cross_view_smem_bytes": [_I],
+    "gc_attention_full_smem_bytes": [_I, _I],
 }
 
 _lib = None

@@ -2,13 +2,14 @@
 (standard-layout single shot) and K6 (streaming), and `flash_attention`,
 which dispatches among K2, K5 and K6.
 
-Counterpart of `gaussctrl_tpu/ops/flash_attention.py`. K2 and K6 run on one
-TMA/wgmma flash core in `csrc/flash_hopper.cu`, K3 is CUDA C++ in
-`csrc/attention.cu` and K5 in `csrc/attention_std.cu`; each is
-launched through a wrapper that keeps the JAX layout `[B, T, C]` (heads side
-by side in C), so no relayout copy is made. Beside each wrapper is its plain
-PyTorch version; the wrapper takes it only for a tensor on the CPU. On a
-CUDA tensor it launches the kernel or raises.
+Counterpart of `gaussctrl_tpu/ops/flash_attention.py`. All four run on one
+TMA/wgmma flash core (`csrc/flash_core.cuh`): K2 and K6 in
+`csrc/flash_hopper.cu`, K3 in `csrc/cross_view_hopper.cu` and K5 in
+`csrc/attention_full_hopper.cu`; each is launched through a wrapper that
+keeps the JAX layout `[B, T, C]` (heads side by side in C), so no relayout
+copy is made. Beside each wrapper is its plain PyTorch version; the wrapper
+takes it only for a tensor on the CPU. On a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,27 +20,27 @@ import torch
 
 from gaussctrl_tpu_torch.ops import _lib, launch_counts
 
-# shared memory one block may take on the H100 (227 KB)
-SMEM_PER_BLOCK = 232448
-# K5 query rows per block (csrc/attention_std.cu), and the keys per block of
-# the streaming plain version (the JAX `_flash_kernel`'s block)
-_BQ, _BK = 64, 64
+# keys per block of the streaming plain version (the JAX `_flash_kernel`'s
+# block)
+_BK = 64
 # head widths up to which the transposed single shot (K2) is taken for
 # square self-attention; wider heads (the VAE's 512) go on to K5/K6
 _K2_MAX_HEAD_DIM = 160
+# keys K5 takes: its whole key list is one wgmma key tile
+# (csrc/attention_full_hopper.cu); longer key lists go to K6
+FULL_MAX_KEYS = 128
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def full_smem_bytes(d: int, tk: int) -> int:
-    """Shared memory of one K5 block for head width d and tk keys: the
-    query rows, all of K and Vᵀ (bf16, width padded to 16, rows to 16) and
-    the [64, tk] fp32 score panel, as `full_smem` in attention_std.cu."""
-    dp, tk16 = _round_up(d, 16), _round_up(tk, 16)
-    return (2 * (_BQ * (dp + 8) + tk16 * (dp + 8) + dp * (tk16 + 8))
-            + 4 * _BQ * (tk16 + 4))
+def _stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of t's device. The raw query
+    (the one PyTorch's compiled kernels use) skips building a Stream object,
+    a few microseconds that small launches such as the text
+    cross-attention's would otherwise spend on the host."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +154,7 @@ def flash_attention_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     err = _lib.library().gc_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq,
-        k.shape[1], c, heads, torch.cuda.current_stream(q.device).cuda_stream)
+        k.shape[1], c, heads, _stream(q))
     _lib.check(err, "flash_attention_t")
     launch_counts["flash_attention_t"] += 1
     return out
@@ -178,8 +179,7 @@ def cross_view_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     err = _lib.library().gc_cross_view_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g, b // g,
-        t, c, heads, r, float(self_coeff),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        t, c, heads, r, float(self_coeff), _stream(q))
     _lib.check(err, "cross_view_attention")
     launch_counts["cross_view_attention"] += 1
     return out
@@ -194,23 +194,27 @@ _STREAM_WIDTHS = _FULL_WIDTHS + (512,)
 
 def full_fits(d: int, tk: int) -> bool:
     """Whether K5 takes head width d with tk keys: a width it is built for,
-    and its score panel and K/V within one block's shared memory."""
+    and at most `FULL_MAX_KEYS` keys (one key tile)."""
     return (d % 8 == 0 and _round_up(d, 16) in _FULL_WIDTHS
-            and full_smem_bytes(d, tk) <= SMEM_PER_BLOCK)
+            and 0 < tk <= FULL_MAX_KEYS)
 
 
 def _check_std(name: str, heads: int, widths, q, k, v) -> None:
     """What K5/K6 take: bf16 [B, T, C] on one CUDA device, rows of C
     contiguous elements, q contiguous, k and v with one batch stride (so a
-    view such as `kg[:, i]` of a [G, F, T, C] tensor is read in place)."""
+    view such as `kg[:, i]` of a [G, F, T, C] tensor is read in place).
+    Called before every launch of the text cross-attention, so it reads
+    each property once."""
+    dev = q.get_device() if q.is_cuda else None
     for t in (q, k, v):
-        if t.device.type != "cuda" or t.device != q.device:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name}: tensors must all lie on one CUDA device "
                              f"or all on the CPU, got {t.device}")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
-        if (t.dim() != 3 or t.stride(2) != 1 or t.stride(1) != t.shape[2]
-                or t.stride(0) % 8 or t.data_ptr() % 16):
+        st = t.stride()
+        if (len(st) != 3 or st[2] != 1 or st[1] != t.shape[2] or st[0] % 8
+                or t.data_ptr() % 16):
             raise ValueError(f"{name}: the kernel takes [B, T, C] tensors with "
                              f"contiguous rows and 16-byte aligned batches")
     b, _, c = q.shape
@@ -231,7 +235,7 @@ def _launch_std(name: str, fn, q, k, v, heads: int) -> torch.Tensor:
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              q.stride(0), k.stride(0), b, tq, k.shape[1], c, heads,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _stream(q))
     _lib.check(err, name)
     launch_counts[name] += 1
     return out
@@ -239,16 +243,15 @@ def _launch_std(name: str, fn, q, k, v, heads: int) -> torch.Tensor:
 
 def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    heads: int) -> torch.Tensor:
-    """K5: single-shot attention with the whole [64, Tk] fp32 score panel and
-    all of K/V in one block's shared memory. q [B,Tq,C], k/v [B,Tk,C] →
-    [B,Tq,C]. CPU tensors take `attention_plain`."""
+    """K5: single-shot attention with the whole key list (at most
+    `FULL_MAX_KEYS`) in one key tile. q [B,Tq,C], k/v [B,Tk,C] → [B,Tq,C].
+    CPU tensors take `attention_plain`."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return attention_plain(q, k, v, heads)
     _check_std("attention_full", heads, _FULL_WIDTHS, q, k, v)
-    need = full_smem_bytes(q.shape[2] // heads, k.shape[1])
-    if need > SMEM_PER_BLOCK:
-        raise ValueError(f"attention_full: {k.shape[1]} keys need {need} bytes "
-                         f"of shared memory, over {SMEM_PER_BLOCK}; use "
+    if k.shape[1] > FULL_MAX_KEYS:
+        raise ValueError(f"attention_full: {k.shape[1]} keys, over the "
+                         f"{FULL_MAX_KEYS} of one key tile; use "
                          f"attention_stream")
     return _launch_std("attention_full", _lib.library().gc_attention_full,
                        q, k, v, heads)
@@ -272,13 +275,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention q [B,Tq,C], k/v [B,Tk,C] → [B,Tq,C] through one kernel.
 
     kernel: "full_t" = K2, "full" = K5, "stream" = K6, "auto" = the JAX
-    package's rule with the TPU's VMEM budget replaced by the card's shared
-    memory: square self-attention (Tq == Tk ≤ 4096, `is_self` not False)
-    with a head width K2 takes goes to K2; otherwise K5 when it is built for
-    the head width and its score panel and K/V fit one block's shared
-    memory, else K6. `is_self=False` marks a
-    call that is not self-attention though square (the grouped references
-    at one view)."""
+    package's rule with the TPU's VMEM budget replaced by K5's capacity:
+    square self-attention (Tq == Tk ≤ 4096, `is_self` not False) with a
+    head width K2 takes goes to K2; otherwise K5 when it is built for the
+    head width and the keys fit its one key tile (`full_fits`), else K6.
+    `is_self=False` marks a call that is not self-attention though square
+    (the grouped references at one view)."""
     tq, c = q.shape[1], q.shape[2]
     tk = k.shape[1]
     d = c // heads

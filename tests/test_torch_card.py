@@ -1,5 +1,6 @@
-"""Card-only tests of the attention kernels K2 (`flash_attention_t`), K5
-(`attention_full`) and K6 (`attention_stream`) against their plain versions.
+"""Card-only tests of the attention kernels K2 (`flash_attention_t`), K3
+(`cross_view_attention`), K5 (`attention_full`) and K6 (`attention_stream`)
+against their plain versions.
 
 This file imports no JAX, so it runs on a machine with the card and
 PyTorch alone: `python -m pytest -m cuda tests/test_torch_card.py`. Without
@@ -137,3 +138,70 @@ def test_stream_kernel_strided_references_tq_ne_tk_on_card(t):
                            fa.attention_stream_plain(q, k[:, 2].contiguous(),
                                                      v[:, 2].contiguous(), 8))
     assert launch_counts["attention_stream"] == before + 1
+
+
+# (G, F, r, c): CFG-doubled with the edit's four references and the UNet's
+# c, the same with the ControlNet's c = 0, and one group with one reference
+# under either c
+_XVIEW_CASES = [(2, 5, 4, 0.6), (2, 5, 4, 0.0), (1, 3, 1, 0.6), (1, 3, 1, 0.0)]
+
+
+def _check_cross_view(d, t, g, f, r, coeff, seed):
+    dev = _card()
+    q, k, v = (torch.tensor(x).to(dev, torch.bfloat16)
+               for x in _qkv((g * f, t, 8 * d), (g * f, t, 8 * d), seed))
+    before = launch_counts["cross_view_attention"]
+    _assert_close_to_plain(fa.cross_view_attention(q, k, v, 8, r, coeff, g),
+                           fa.cross_view_attention_plain(q, k, v, 8, r, coeff, g))
+    assert launch_counts["cross_view_attention"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,f,r,coeff", _XVIEW_CASES)
+@pytest.mark.parametrize("t", [64, 100, 256, 1024])
+@pytest.mark.parametrize("d", [16, 32, 40, 80, 160])
+def test_cross_view_kernel_widths_match_plain_on_card(d, t, g, f, r, coeff):
+    """K3 at every head width it is built for, 8 heads, with a query and key
+    tail (T = 100), against cross_view_attention_plain, bf16."""
+    _check_cross_view(d, t, g, f, r, coeff, 61 + d + t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,f,r,coeff", _XVIEW_CASES)
+def test_cross_view_kernel_4096_tokens_on_card(g, f, r, coeff):
+    """K3 at the edit's largest level: T = 4096, 8 heads of 40."""
+    _check_cross_view(40, 4096, g, f, r, coeff, 67)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tk", [1, 16, 64, 77, 100, fa.FULL_MAX_KEYS])
+@pytest.mark.parametrize("d", [16, 40, 80, 160])
+def test_full_kernel_key_counts_match_plain_on_card(d, tk):
+    """K5 at key counts up to its one key tile (the padded and masked key
+    tail), 8 heads, 300 queries (a query tail), k and v strided references
+    of a [G, F, Tk, C] tensor, against attention_plain, bf16."""
+    dev = _card()
+    q, k, v = (torch.tensor(x).to(dev, torch.bfloat16)
+               for x in _qkv((2, 300, 8 * d), (2, 3, tk, 8 * d), 71 + d + tk))
+    before = launch_counts["attention_full"]
+    _assert_close_to_plain(fa.attention_full(q, k[:, 1], v[:, 1], 8),
+                           fa.attention_plain(q, k[:, 1].contiguous(),
+                                              v[:, 1].contiguous(), 8))
+    assert launch_counts["attention_full"] == before + 1
+
+
+@pytest.mark.cuda
+def test_full_kernel_refuses_keys_past_one_tile_on_card():
+    """K5 raises for more keys than one key tile, launching nothing; auto
+    dispatch sends such a call to K6."""
+    dev = _card()
+    tk = fa.FULL_MAX_KEYS + 1
+    q, k, v = (torch.tensor(x).to(dev, torch.bfloat16)
+               for x in _qkv((2, 64, 320), (2, tk, 320), 73))
+    before = dict(launch_counts)
+    with pytest.raises(ValueError, match="key tile"):
+        fa.attention_full(q, k, v, 8)
+    assert launch_counts == before
+    _assert_close_to_plain(fa.flash_attention(q, k, v, 8),
+                           fa.attention_stream_plain(q, k, v, 8))
+    assert launch_counts["attention_stream"] == before["attention_stream"] + 1

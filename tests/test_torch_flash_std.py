@@ -116,14 +116,16 @@ def test_auto_dispatch(monkeypatch, b, tq, tk, c, heads, is_self, want):
 
 
 def test_full_fits_bounds_the_panel():
-    """K5's shared memory grows with Tk; at d = 160 the 64-token references
-    and the text fit and the 256-token references do not, as ROUTES
-    assumes; d = 512 is not a K5 width at any Tk."""
+    """K5 takes at most one key tile of FULL_MAX_KEYS = 128 keys at every
+    width it is built for: the 64-token references and the text fit, as
+    ROUTES assumes; the 256-token references do not at any width (at d = 40
+    they did under the old shared-memory panel rule); d = 512 is not a K5
+    width at any Tk."""
     assert fa.full_fits(160, 64) and fa.full_fits(160, 77)
-    assert not fa.full_fits(160, 256)
-    assert fa.full_smem_bytes(160, 256) > fa.SMEM_PER_BLOCK
-    assert fa.full_smem_bytes(40, 77) < fa.full_smem_bytes(40, 78 + 16)
-    assert fa.full_smem_bytes(512, 16) <= fa.SMEM_PER_BLOCK
+    assert fa.full_fits(160, fa.FULL_MAX_KEYS) and fa.full_fits(16, 1)
+    assert not fa.full_fits(160, fa.FULL_MAX_KEYS + 1)
+    assert not fa.full_fits(40, 256) and not fa.full_fits(160, 256)
+    assert fa.FULL_MAX_KEYS == 128
     assert not fa.full_fits(512, 16)
 
 
@@ -223,13 +225,13 @@ def test_composed_processor_matches_jax(g, f, t, c, heads, r, self_coeff):
 @pytest.mark.parametrize("t,allow_fused,want", [
     (256, True, ["cross_view_attention"]),
     (64, True, ["flash_attention_t", "attention_full", "attention_full"]),
-    (256, False, ["flash_attention_t", "attention_full", "attention_full"]),
+    (256, False, ["flash_attention_t", "attention_stream", "attention_stream"]),
 ])
 def test_cross_view_routes(monkeypatch, t, allow_fused, want):
     """The fused kernel K3 takes the levels of _XVIEW_FUSED_DEFAULT; other
     levels, and every level under allow_fused=False, take the composed
     route: the self branch through K2 and one call per reference view (K5
-    here: its panel fits at these sizes)."""
+    where the view's keys fit its one key tile, at 64 tokens; K6 at 256)."""
     seen = []
 
     def spy(mod, name):
