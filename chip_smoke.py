@@ -14,7 +14,9 @@ Phases, each printing one JSON line with its wall time:
                   spills, shared memory and the count of HGMMA (wgmma)
                   instructions of every instantiation of the attention
                   kernels (K2/K6, K3, K5), from ptxas and cuobjdump, failing
-                  if one is missing, has none or was serialized by ptxas;
+                  if one is missing, has none or was serialized by ptxas,
+                  and the same facts of K1 and K4 with their resident
+                  blocks per SM;
   3. kernels      K1 (splat blend), K4 (its backward), K2 (inversion
                   attention), K3 (cross-view attention), K5 (single-shot
                   standard-layout attention: text cross-attention, composed
@@ -33,7 +35,8 @@ Phases, each printing one JSON line with its wall time:
   5. train        a few re-optimisation steps of a tiny scene on the card
                   against the CPU in float32 (loss and first-step
                   gradients), each K4 call also held against its plain
-                  version on its own inputs;
+                  version on its own inputs; then `reopt_split`: one warmed
+                  full-width re-optimisation step timed in its parts;
   6. main path    GaussCtrlPipeline.run(): render_reverse(), edit_images()
                   and reoptimize() at SD-1.5 width with seeded random
                   weights in bf16 on a seeded random scene of 200,000
@@ -103,13 +106,13 @@ SMALL_REL_TOL = dict(z_T=0.05, edited=0.06)
 REOPT_STEPS = 100
 # fp32 operations per (instance, pixel) pair that the function needs.
 # K1: sigma, alpha, the gates, the weight, ch = 4 channel sums, the
-# transmittance. K4 (ch = 4), counted from pass B of splat_blend_bwd.cu,
-# the one replay the VJP needs: dx, dy 2; sigma 9; exp(-sigma) 2; alpha_raw
-# and the 0.999 clamp 2; the keep gate and alpha 4; m and w 4; g.c 7;
-# q, prefix, S_i 3; T update 2 (replay 35); dL/dalpha with its gate 8;
-# g_sigma 2; xy 8; conic 8; colour 4; opacity 1 (gradient 31); the sum of
-# the 10 row values over the tile's pixels 10. Total 76. The kernel's pass
-# A replays 34 of them once more, which the bound does not count.
+# transmittance. K4 (ch = 4), the one replay the VJP needs, as the JAX
+# kernel writes it: dx, dy 2; sigma 9; exp(-sigma) 2; alpha_raw and the
+# 0.999 clamp 2; the keep gate and alpha 4; m and w 4; g.c 7; q, prefix,
+# S_i 3; T update 2 (replay 35); dL/dalpha with its gate 8; g_sigma 2; xy
+# 8; conic 8; colour 4; opacity 1 (gradient 31); the sum of the 10 row
+# values over the tile's pixels 10. Total 76. The pairs are those of the
+# instances K1 blended (whole batches of 128 up to saturation).
 OPS_PER_PAIR_FWD = 30
 OPS_PER_PAIR_BWD = 76
 # K4 rows held per group (xy, conic, colour, opacity) against the plain
@@ -237,16 +240,22 @@ ATTENTION_INSTANTIATIONS = (
     [f"core<{w}>" for w in CORE_WIDTHS] + ["wide<512>"]
     + [f"xview<{w}>" for w in CORE_WIDTHS]
     + [f"full<{w},{nk}>" for w in CORE_WIDTHS for nk in FULL_KEY_TILES])
+# K1 and K4 for ch = 3 and 4 (no tensor cores: fp32 on the CUDA cores)
+SPLAT_INSTANTIATIONS = [f"blend_{k}<{ch}>" for k in ("fwd", "bwd")
+                        for ch in (3, 4)]
 
 
 def _instantiation(symbol: str):
-    """'core<48>' / 'wide<512>' (K2/K6), 'xview<48>' (K3) or 'full<48,80>'
-    (K5) for a mangled kernel name, else None."""
+    """'core<48>' / 'wide<512>' (K2/K6), 'xview<48>' (K3), 'full<48,80>'
+    (K5) or 'blend_fwd<4>' / 'blend_bwd<4>' (K1/K4) for a mangled kernel
+    name, else None."""
     import re
     for pattern, name in ((r"flash_core_kernel.*CoreILi(\d+)E", "core<{}>"),
                           (r"cross_view_kernel.*XViewILi(\d+)E", "xview<{}>"),
                           (r"attention_full_kernel.*FullILi(\d+)ELi(\d+)E",
-                           "full<{},{}>")):
+                           "full<{},{}>"),
+                          (r"splat_blend_(fwd|bwd)_kernelILi(\d)E",
+                           "blend_{}<{}>")):
         m = re.search(pattern, symbol)
         if m:
             return name.format(*m.groups())
@@ -266,15 +275,17 @@ def _smem_bytes(lib, name: str) -> int:
 
 def check_sass(build_log: str, out_dir: str) -> dict:
     """Registers, spills and shared memory of every instantiation of the
-    attention kernels (K2/K6 core and wide variant, K3, K5; from ptxas'
-    report of this process's build, when it built), any note of ptxas that
-    it serialized an instantiation's wgmma, and a count of HGMMA (wgmma)
-    instructions in each one's SASS (cuobjdump -sass of the library). Fails
-    unless every expected instantiation is there, each with HGMMA and none
-    serialized."""
+    attention kernels (K2/K6 core and wide variant, K3, K5) and of K1 and
+    K4 (from ptxas' report of this process's build, when it built; K1/K4's
+    also from the runtime, with their resident blocks per SM), any note of
+    ptxas that it serialized an instantiation's wgmma, and the counts of
+    HGMMA (wgmma) and SHFL instructions in each one's SASS (cuobjdump -sass
+    of the library; K4's reduce-scatter is 12 SHFL a warp and instance). Fails unless every expected instantiation is there, each
+    attention one with HGMMA and none serialized."""
     import re
     import shutil
     from gaussctrl_tpu_torch.ops import _lib
+    from gaussctrl_tpu_torch.ops import splat_blend as sb
     so = _lib.library_path()
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
@@ -285,9 +296,11 @@ def check_sass(build_log: str, out_dir: str) -> dict:
         if m:
             name = _instantiation(m.group(1))
             if name:
-                insts[name] = dict(hgmma=0)
+                insts[name] = dict(hgmma=0, shfl=0)
         elif name and "HGMMA" in line:
             insts[name]["hgmma"] += 1
+        elif name and "SHFL" in line:
+            insts[name]["shfl"] += 1
     ptxas, name = [], None
     for line in build_log.splitlines():
         m = re.search(r"serialized.*function '(\S+)'", line)
@@ -308,18 +321,23 @@ def check_sass(build_log: str, out_dir: str) -> dict:
         if m:
             insts[name]["registers"] = int(m.group(1))
     for name, rec in insts.items():
-        rec["dynamic_smem_bytes"] = _smem_bytes(_lib.library(), name)
+        if name.startswith("blend_"):
+            kind, ch = name[len("blend_"):-1].split("<")
+            rec.update(runtime=sb.kernel_attrs(kind, int(ch)))
+        else:
+            rec["dynamic_smem_bytes"] = _smem_bytes(_lib.library(), name)
     rec = dict(phase="sass", library=os.path.basename(so),
                ptxas_in_this_run=bool(ptxas), instantiations=insts)
     emit(rec)
     if out_dir:
         with open(os.path.join(out_dir, "sass.txt"), "w") as f:
             f.write("\n".join(ptxas) + "\n" + json.dumps(insts, indent=1) + "\n")
-    if (sorted(insts) != sorted(ATTENTION_INSTANTIATIONS)
+    if (sorted(insts) != sorted(ATTENTION_INSTANTIATIONS + SPLAT_INSTANTIATIONS)
             or not all(r["hgmma"] > 0 and not r.get("wgmma_serialized")
-                       for r in insts.values())):
+                       for n, r in insts.items() if not n.startswith("blend_"))):
         raise AssertionError(f"the attention kernels are not all on "
-                             f"unserialized wgmma: {insts}")
+                             f"unserialized wgmma, or an instantiation is "
+                             f"missing: {insts}")
     return rec
 
 
@@ -384,41 +402,59 @@ def splat_inputs(scene, cams, ch: int = 4, logit_shift: float = 0.0):
     return args, b
 
 
+def tile_load(done, attrs) -> dict:
+    """How the blended instances spread over the tiles, and the blocks of
+    the kernel an SM holds at once (the runtime's occupancy)."""
+    d = done.float()
+    return dict(max_blended_per_tile=int(d.max().item()),
+                mean_blended_per_tile=float(d.mean().item()),
+                empty_tiles=int((d == 0).sum().item()), **attrs)
+
+
 def check_k1(scene, cams, reps):
-    """K1 on one 512x512 view of the smoke scene against blend_plain."""
+    """K1 on one 512x512 view of the smoke scene against blend_plain; its
+    packed records against pack_records, bit for bit."""
     import torch
     from gaussctrl_tpu_torch.ops import splat_blend as sb
 
     args, b = splat_inputs(scene, cams)
     ntx, nty = args[-2:]
     W, H = cams.width, cams.height
-    tiles, alpha, done = sb.blend(*args, return_done=True)
+    tiles, alpha, done, records, _, _ = sb.blend(
+        *args, return_done=True, return_state=True)
     ref_tiles, ref_alpha = sb.blend_plain(*args)
     torch.cuda.synchronize()
     err = max((tiles - ref_tiles).abs().max().item(),
               (alpha - ref_alpha).abs().max().item())
-    # tolerance: same fp32 arithmetic, the transmittance product taken in
-    # another order; depth (channel 4) reaches ~5, so 1e-3 absolute
+    rec_err = (records - sb.pack_records(*args[3:7])).abs().max().item()
+    # tolerance: the same fp32 function with ex2.approx, the transmittance
+    # product taken in another order; depth (channel 4) reaches ~5, so 1e-3
+    # absolute. The records are the same products: bit for bit.
     tol = 1e-3
     pairs = float(done.sum().item()) * 256
     used = int(b.ends[-1].item())
     n = args[3].shape[0]
     ch = args[5].shape[1]
-    # each input read once (the used index range, the per-gaussian rows,
-    # the ranges), each output written once (tiles ch + T per pixel)
+    # each input read once (the used index range, the per-gaussian inputs,
+    # the ranges), each output written once (the records, acc and tiles ch,
+    # T and alpha per pixel, n_done)
     nbytes = (4 * used + 8 * ntx * nty + 4 * n * (2 + 3 + ch + 1)
-              + 4 * ntx * nty * 256 * (ch + 1))
+              + 4 * n * sb.REC_FLOATS
+              + 4 * ntx * nty * (256 * (2 * ch + 2) + 1))
     ms = cuda_ms(lambda: sb.blend(*args), reps)
     plain = cuda_ms(lambda: sb.blend_plain(*args), max(1, reps // 10))
     rec = dict(phase="kernels", kernel="splat_blend_fwd", shape=[H, W, ch],
                n_isect=int(b.n_isect.item()), isect_budget=b.gauss_idx.shape[0],
                max_tile=int((b.ends - b.starts).max().item()),
-               pairs_blended=pairs, max_abs_err=err, tol=tol, kernel_ms=ms,
-               plain_ms=plain, library_ms=None,
+               batch=sb.BATCH, pairs_blended=pairs, max_abs_err=err, tol=tol,
+               records_max_abs_err=rec_err, kernel_ms=ms, plain_ms=plain,
+               library_ms=None,
+               **tile_load(done, sb.kernel_attrs("fwd", ch)),
                **bound_fields(pairs * OPS_PER_PAIR_FWD, PEAK_FP32, nbytes))
     emit(rec)
-    if not err <= tol:
-        raise AssertionError(f"K1 disagrees with its plain version: {err} > {tol}")
+    if not (err <= tol and rec_err == 0.0):
+        raise AssertionError(f"K1 disagrees with its plain version: {err} > "
+                             f"{tol} or records off by {rec_err}")
     return rec
 
 
@@ -440,42 +476,68 @@ def k4_errors(rows, g_bg, ref_rows, ref_bg) -> dict:
     return out
 
 
+def k4_held(bwd_args):
+    """K4 and its plain version on the same arguments, compared over the
+    rows of [0, ends[-1]) (K4 leaves the rest of the buffer unset):
+    (K4's rows and g_bg, their errors)."""
+    from gaussctrl_tpu_torch.ops import splat_blend as sb
+    used = int(bwd_args[2][-1].item())
+    rows, g_bg = sb.blend_bwd(*bwd_args)
+    ref_rows, ref_bg = sb.blend_bwd_plain(*bwd_args)
+    return rows, g_bg, k4_errors(rows[:used], g_bg, ref_rows[:used], ref_bg)
+
+
 def check_k4(scene, cams, reps):
     """K4 on one 512x512 view of the smoke scene against blend_bwd_plain
-    over the same n_done (from K1), with a seeded random cotangent: ch = 4
-    timed; ch = 3 (its other instantiation) and a near-opaque scene (where
-    alpha_raw passes the 0.999 gate) checked."""
+    over the same n_done, records, sums and T_fin (from K1), with a seeded
+    random cotangent, and against the plain two-replay form (Q and T_fin
+    replayed from the records, not taken from K1), which holds the K1 -> K4
+    hand-off at full width: ch = 4 timed; ch = 3 (its other instantiation)
+    and a near-opaque scene (where alpha_raw passes the 0.999 gate)
+    checked; every case bit-identical over two calls."""
     import torch
     from gaussctrl_tpu_torch.ops import splat_blend as sb
     recs = []
     for ch, shift in ((4, 0.0), (3, 0.0), (4, 6.0)):
         args, b = splat_inputs(scene, cams, ch, shift)
         ntx, nty = args[-2:]
-        _, _, done = sb.blend(*args, return_done=True)
+        _, _, done, records, acc, t_fin = sb.blend(*args, return_done=True,
+                                                   return_state=True)
         gen = torch.Generator(device=DEVICE).manual_seed(4)
         T = ntx * nty
         go = torch.rand((T, 256, ch), generator=gen, device=DEVICE) - 0.5
         ga = torch.rand((T, 256), generator=gen, device=DEVICE) - 0.5
-        bwd_args = (args[0], args[1], done, *args[3:8], go, ga, ntx, nty)
-        rows, g_bg = sb.blend_bwd(*bwd_args)
-        ref_rows, ref_bg = sb.blend_bwd_plain(*bwd_args)
+        bwd_args = (args[0], args[1], args[2], done, records, acc, t_fin,
+                    args[7], go, ga, ntx, nty)
+        rows, g_bg, errs = k4_held(bwd_args)
+        used = int(b.ends[-1].item())
+        two_rows, two_bg = sb.blend_bwd_plain(*bwd_args[:5], None, None,
+                                              *bwd_args[7:])
+        errs_two = k4_errors(rows[:used], g_bg, two_rows[:used], two_bg)
+        del two_rows
+        again, g_bg2 = sb.blend_bwd(*bwd_args)
         torch.cuda.synchronize()
-        errs = k4_errors(rows, g_bg, ref_rows, ref_bg)
+        identical = bool(torch.equal(rows[:used], again[:used])
+                         and torch.equal(g_bg, g_bg2))
         rec = dict(phase="kernels", kernel="splat_blend_bwd",
                    shape=[cams.height, cams.width, ch], logit_shift=shift,
                    scaled_err=errs,
+                   scaled_err_two_replay=errs_two,
                    scaled_tol=K4_SCALED_TOL,
                    max_abs_err=errs.pop("max_abs_err"),
-                   rows_nonzero=int((rows.abs().sum(1) > 0).sum().item()))
+                   bit_identical=identical,
+                   rows_nonzero=int((rows[:used].abs().sum(1) > 0).sum().item()),
+                   **tile_load(done, sb.kernel_attrs("bwd", ch)))
         if not recs:
             pairs = float(done.sum().item()) * 256
-            used = int(b.ends[-1].item())
             n = args[3].shape[0]
             d = 6 + ch
-            # inputs read once: the used index range, the per-gaussian rows,
-            # starts and n_done, the cotangents; outputs: the rows and T_fin
-            nbytes = (4 * used + 8 * T + 4 * n * (2 + 3 + ch + 1)
-                      + 4 * T * 256 * (ch + 1) + 4 * used * d + 4 * T * 256)
+            # inputs read once: the blended index range, the records, the
+            # ranges and n_done, acc and T_fin, the cotangents; output: the
+            # rows of [0, ends[-1])
+            nbytes = (4 * float(done.sum().item()) + 12 * T
+                      + 4 * n * sb.REC_FLOATS + 4 * T * 256 * (ch + 1) * 2
+                      + 4 * used * d)
             rec.update(pairs_replayed=pairs, kernel_ms=cuda_ms(
                 lambda: sb.blend_bwd(*bwd_args), reps),
                 plain_ms=cuda_ms(lambda: sb.blend_bwd_plain(*bwd_args),
@@ -484,8 +546,12 @@ def check_k4(scene, cams, reps):
                 **bound_fields(pairs * OPS_PER_PAIR_BWD, PEAK_FP32, nbytes))
         emit(rec)
         recs.append(rec)
-    bad = [(r["shape"][2], r["logit_shift"], k, v) for r in recs
-           for k, v in r["scaled_err"].items() if not v <= K4_SCALED_TOL]
+    bad = [(r["shape"][2], r["logit_shift"], ref, k, v) for r in recs
+           for ref in ("scaled_err", "scaled_err_two_replay")
+           for k, v in r[ref].items()
+           if k != "max_abs_err" and not v <= K4_SCALED_TOL]
+    bad += [(r["shape"][2], r["logit_shift"], "bit_identical") for r in recs
+            if not r["bit_identical"]]
     if bad:
         raise AssertionError(f"K4 disagrees with its plain version: {bad}")
     return recs[0]
@@ -864,14 +930,12 @@ def check_train(steps: int = 3):
     against its plain version on its own inputs."""
     import importlib
     rast = importlib.import_module("gaussctrl_tpu_torch.splat.rasterize")
-    from gaussctrl_tpu_torch.ops import splat_blend as sb
     t0 = time.perf_counter()
     cpu_losses, cpu_grads = train_run("cpu", steps)
     in_situ = {"calls": 0}
 
-    def held(*args, **kw):
-        rows, g_bg = sb.blend_bwd(*args, **kw)
-        errs = k4_errors(rows, g_bg, *sb.blend_bwd_plain(*args, **kw))
+    def held(*args):
+        rows, g_bg, errs = k4_held(args)
         in_situ["calls"] += 1
         for k, v in errs.items():
             in_situ[k] = max(in_situ.get(k, 0.0), v)
@@ -900,6 +964,102 @@ def check_train(steps: int = 3):
             or loss_rel > TRAIN_LOSS_RTOL
             or any(v > TRAIN_GRAD_SCALED_TOL for v in grad_scaled.values())):
         raise AssertionError(f"card training disagrees with the CPU's: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: where a full-width re-optimisation step goes
+# ---------------------------------------------------------------------------
+
+# the parts of a step, each timed from the end of the one before
+SPLIT_PARTS = ("projection_sh", "binning_sort", "k1", "loss_forward",
+               "loss_backward", "k4", "reduce_by_slot", "projection_backward",
+               "adam")
+
+
+def reopt_split(reps: int = 5):
+    """One re-optimisation step (`trainer.train_step`) at full width, the
+    smoke scene's 200,000 gaussians against one 512x512 view, warmed by two
+    steps, then timed in parts by CUDA events recorded on the stream at the
+    parts' borders: projection + SH, binning and sort, K1 with its wrapper,
+    the L1 + SSIM forward (with the image assembly before it), the loss's
+    backward down to the blend, K4 with its wrapper, reduce_by_slot, the
+    projection's backward, Adam with the quats' renormalisation. Where the
+    host falls behind, a part holds the stream's idle time too. Mean ms of
+    each part over `reps` steps, and each step's wall time."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from gaussctrl_tpu_torch.splat import trainer as tr
+    rast = importlib.import_module("gaussctrl_tpu_torch.splat.rasterize")
+    t0 = time.perf_counter()
+    scene = tr.trainable(smoke_scene(GAUSSIANS, DEVICE))
+    cams = orbit_cameras(2, SIZE, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    target = F.interpolate(
+        torch.rand((1, 3, 32, 32), generator=gen, device=DEVICE),
+        size=(SIZE, SIZE), mode="bilinear").permute(0, 2, 3, 1)[0]
+    bg = torch.rand((3,), generator=gen, device=DEVICE)
+    opt = tr.make_optimizer(scene)
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((name, e))
+
+    def ends_before(fn, name):
+        def call(*a, **kw):
+            mark(name)
+            return fn(*a, **kw)
+        return call
+
+    def ends_after(fn, name):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            mark(name)
+            return out
+        return call
+
+    borders = [(rast, "_bin_and_sort", ends_before, "projection_sh"),
+               (rast, "_bin_and_sort", ends_after, "binning_sort"),
+               (rast, "blend", ends_after, "k1"),
+               (tr, "splat_loss", ends_after, "loss_forward"),
+               (rast, "blend_bwd", ends_before, "loss_backward"),
+               (rast, "blend_bwd", ends_after, "k4"),
+               (rast, "reduce_by_slot", ends_after, "reduce_by_slot"),
+               (opt, "step", ends_before, "projection_backward"),
+               (tr, "_renorm_quats", ends_after, "adam")]
+    entries = {}
+    for obj, name, wrap, part in borders:
+        fn = entries.get((obj, name), getattr(obj, name))
+        entries[(obj, name)] = wrap(fn, part)
+    parts = {k: 0.0 for k in SPLIT_PARTS}
+    wall = []
+    with _patched([(obj, name, fn) for (obj, name), fn in entries.items()]):
+        for i in range(2 + reps):
+            v = i % len(cams)
+            marks.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mark("start")
+            tr.train_step(scene, opt, i, cams.c2w[v], cams.fx[v], cams.fy[v],
+                          cams.cx[v], cams.cy[v], target, bg, SIZE, SIZE, 3)
+            torch.cuda.synchronize()
+            if i < 2:
+                continue
+            wall.append((time.perf_counter() - t) * 1e3)
+            names = [n for n, _ in marks]
+            if names != ["start", *SPLIT_PARTS]:
+                raise AssertionError(f"the step's parts came as {names}")
+            for (_, e0), (name, e1) in zip(marks, marks[1:]):
+                parts[name] += e0.elapsed_time(e1) / reps
+    rec = dict(phase="reopt_split", gaussians=GAUSSIANS, size=SIZE, reps=reps,
+               parts_ms=parts, step_ms=sum(parts.values()),
+               step_wall_ms=sum(wall) / reps,
+               kernels_ms=parts["k1"] + parts["k4"],
+               seconds=time.perf_counter() - t0)
+    emit(rec)
     return rec
 
 
@@ -1206,6 +1366,10 @@ def main() -> int:
     # 5. tiny re-optimisation: card against CPU
     train = check_train()
 
+    # 5b. a full-width re-optimisation step, split
+    split = reopt_split()
+    torch.cuda.empty_cache()
+
     # 6. the main path
     mp, pipe = main_path(args, card)
 
@@ -1264,17 +1428,19 @@ def main() -> int:
     # K6 per call of the main path: the VAE mid-block at B = views
     vae = next(rec for rec in k6 if rec["use"] == "vae")
 
-    # `redesigned`: on the TMA + wgmma core of csrc/flash_core.cuh
+    # `redesigned`: rebuilt for the card after its first port, the attention
+    # kernels on the TMA + wgmma core of csrc/flash_core.cuh, K1 and K4 on
+    # cp.async-staged records with one replay in K4
     launches = mp["launches"]
     kernels = [
-        dict(name="splat_blend_fwd", route="cuda", redesigned=False,
+        dict(name="splat_blend_fwd", route="cuda", redesigned=True,
              source="gaussctrl_tpu_torch/csrc/splat_blend_fwd.cu",
              replaces="gaussctrl_tpu/ops/splat_blend.py:218",
              launches=launches["splat_blend_fwd"],
              max_abs_err=k1["max_abs_err"], ms=k1["kernel_ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
-        dict(name="splat_blend_bwd", route="cuda", redesigned=False,
+        dict(name="splat_blend_bwd", route="cuda", redesigned=True,
              source="gaussctrl_tpu_torch/csrc/splat_blend_bwd.cu",
              replaces="gaussctrl_tpu/ops/splat_blend.py:261",
              launches=launches["splat_blend_bwd"],
@@ -1322,7 +1488,8 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build=build, k1=k1, k4=k4, k2=k2, k3=k3,
-                           k5=k5, k6=k6, sass=sass, train=train, main_path=mp,
+                           k5=k5, k6=k6, sass=sass, train=train,
+                           reopt_split=split, main_path=mp,
                            composed=composed,
                            kernels=kernels, total_s=total_s),
                       f, indent=1)

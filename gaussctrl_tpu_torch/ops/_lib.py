@@ -32,8 +32,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "gc_splat_blend_fwd": [_P] * 10 + [_I, _I, _I, _P],
-    "gc_splat_blend_bwd": [_P] * 12 + [_I, _I, _I, _P],
+    "gc_splat_blend_fwd": [_P] * 14 + [_I] * 4 + [_P],
+    "gc_splat_blend_bwd": [_P] * 11 + [_I] * 3 + [_P],
+    "gc_splat_blend_fwd_attrs": [_I, _P],
+    "gc_splat_blend_bwd_attrs": [_I, _P],
     "gc_flash_attention": [_P] * 4 + [_I] * 5 + [_P],
     "gc_cross_view_attention": [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
     "gc_attention_full": [_P] * 4 + [_L, _L] + [_I] * 5 + [_P],

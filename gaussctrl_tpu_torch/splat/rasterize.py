@@ -13,9 +13,10 @@ budgets so that the binning comes out identical:
   4. BLEND  a `torch.autograd.Function` (`_Blend`): forward kernel K1
             (`ops/splat_blend.blend`) on the card, its plain segmented
             version on the CPU; backward kernel K4
-            (`ops/splat_blend.blend_bwd`) on the card, the plain two-pass
-            replay on the CPU, then `reduce_by_slot` sums the per-instance
-            rows per gaussian. Gradients reach xys, conics, colors,
+            (`ops/splat_blend.blend_bwd`) on the card, the plain replay on
+            the CPU, both from the forward's packed records, channel sums
+            and final transmittance; then `reduce_by_slot` sums the
+            per-instance rows per gaussian. Gradients reach xys, conics, colors,
             opacities and the background; the binning carries none.
 """
 
@@ -184,26 +185,27 @@ class _Blend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xys, conics, colors, opacities, background, binned,
                 n_tiles_x, n_tiles_y, cfg):
-        tiles, alpha, done = blend(
+        tiles, alpha, done, records, acc, t_fin = blend(
             binned.gauss_idx, binned.starts, binned.ends, xys, conics, colors,
             opacities, background, n_tiles_x, n_tiles_y, cfg.tile_capacity,
-            cfg.tile_chunk, return_done=True)
-        ctx.save_for_backward(xys, conics, colors, opacities, background)
+            cfg.tile_chunk, return_done=True, return_state=True)
+        ctx.save_for_backward(records, acc, t_fin, background)
         ctx.binned, ctx.done, ctx.cfg = binned, done, cfg
         ctx.grid = (n_tiles_x, n_tiles_y)
         return tiles, alpha
 
     @staticmethod
     def backward(ctx, g_tiles, g_alpha):
-        xys, conics, colors, opacities, background = ctx.saved_tensors
+        records, acc, t_fin, background = ctx.saved_tensors
         b, cfg = ctx.binned, ctx.cfg
-        n, ch = xys.shape[0], colors.shape[-1]
+        n, ch = records.shape[0], acc.shape[-1]
         rows, g_bg = blend_bwd(
-            b.gauss_idx, b.starts, ctx.done, xys, conics, colors, opacities,
+            b.gauss_idx, b.starts, b.ends, ctx.done, records, acc, t_fin,
             background.float().contiguous(), g_tiles.float().contiguous(),
             g_alpha.float().contiguous(), *ctx.grid)
         ksx = min(cfg.small_tiles_x, cfg.max_tiles_x)
         ksy = min(cfg.small_tiles_y, cfg.max_tiles_y)
+        # rows at or past ends[-1] belong to no tile (K4 leaves them unset)
         valid = torch.arange(rows.shape[0], device=rows.device) < b.ends[-1]
         g = reduce_by_slot(rows, b.slot_idx, valid, b, n, ksx * ksy,
                            cfg.max_tiles_x * cfg.max_tiles_y)

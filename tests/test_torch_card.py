@@ -1,4 +1,5 @@
-"""Card-only tests of the attention kernels K2 (`flash_attention_t`), K3
+"""Card-only tests of the splat-blend kernels K1 (`blend`) and K4
+(`blend_bwd`) and the attention kernels K2 (`flash_attention_t`), K3
 (`cross_view_attention`), K5 (`attention_full`) and K6 (`attention_stream`)
 against their plain versions.
 
@@ -8,12 +9,18 @@ a card every test skips; chip_smoke.py makes the same comparisons at the
 main path's shapes.
 """
 
+import ctypes
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from gaussctrl_tpu_torch.ops import _lib
 from gaussctrl_tpu_torch.ops import flash_attention as fa
 from gaussctrl_tpu_torch.ops import launch_counts
+from gaussctrl_tpu_torch.ops import splat_blend as sb
 
 
 def _qkv(shape_q, shape_kv, seed):
@@ -205,3 +212,146 @@ def test_full_kernel_refuses_keys_past_one_tile_on_card():
     _assert_close_to_plain(fa.flash_attention(q, k, v, 8),
                            fa.attention_stream_plain(q, k, v, 8))
     assert launch_counts["attention_stream"] == before["attention_stream"] + 1
+
+
+# ---------------------------------------------------------------------------
+# K1 and K4: the splat blend and its backward
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                   "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _synthetic_view(ch, dev):
+    """A 2×2-tile view (32×32 pixels) with one tile of each kind: 0 empty,
+    1 a single instance, 2 a list of 1,000 near-opaque instances (opacity
+    0.99-0.9999, so α_raw passes the 0.999 gate) that saturates in its first
+    batch, so n_done ends mid-list, 3 6,000 faint instances (deeper than
+    5,000; it never saturates). The gaussians are stored shuffled, so the
+    lists gather. Returns `blend`'s arguments and the expected n_done."""
+    rng = np.random.default_rng(ch)
+    counts, origins = [0, 1, 1000, 6000], [(0, 0), (16, 0), (0, 16), (16, 16)]
+    # (placement range in the tile, opacities): the deep tile's are just
+    # above 1/255 at their centres, so that its corners never saturate
+    kinds = [None, ((2, 14), (0.8, 0.8)), ((2, 14), (0.99, 0.9999)),
+             ((4, 12), (0.004, 0.008))]
+    xys, conics, opac = [], [], []
+    for n, (ox, oy), kind in zip(counts, origins, kinds):
+        if not n:
+            continue
+        (lo, hi), o = kind
+        xys.append(rng.uniform(lo, hi, (n, 2)) + (ox, oy))
+        var = rng.uniform(4.0, 40.0, (n, 2))
+        rho = rng.uniform(-0.6, 0.6, n)
+        det = var[:, 0] * var[:, 1] * (1 - rho**2)
+        cov_xy = rho * np.sqrt(var[:, 0] * var[:, 1])
+        conics.append(np.stack([var[:, 1] / det, -cov_xy / det,
+                                var[:, 0] / det], -1))
+        opac.append(rng.uniform(*o, n))
+    total = sum(counts)
+    perm = rng.permutation(total)             # list position -> gaussian
+    inv = np.argsort(perm)
+    as_t = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    xys, conics, opac = (np.concatenate(x)[inv] for x in (xys, conics, opac))
+    colors = rng.uniform(0, 1, (total, ch))
+    ends = np.cumsum(counts)
+    gidx = np.zeros(total + 64, np.int32)     # a budget past the last tile
+    gidx[:total] = perm
+    i32 = lambda x: torch.tensor(np.asarray(x, np.int32), device=dev)
+    args = (i32(gidx), i32(ends - counts), i32(ends), as_t(xys), as_t(conics),
+            as_t(colors), as_t(opac), as_t(rng.uniform(0, 1, ch)), 2, 2)
+    return args, [0, 1, sb.BATCH, 6000]
+
+
+def _check_blend_kernels(args):
+    """K1 and K4 on the card against their plain versions on the same
+    inputs: K1's tiles and alpha within 1e-3 absolute (chip_smoke's K1
+    tolerance: the same fp32 function, with ex2.approx and the product in
+    another order), its records bit for bit; K4's rows over [0, ends[-1])
+    per group (xy, conic, colour, opacity) and g_bg within 1e-3 of the
+    group's largest |value| (chip_smoke's K4_SCALED_TOL), bit-identical over
+    two calls, zero past each tile's n_done. Returns n_done."""
+    gidx, starts, ends = args[:3]
+    ntx, nty = args[-2:]
+    ch = args[5].shape[1]
+    before = dict(launch_counts)
+    tiles, alpha, done, rec, acc, t_fin = sb.blend(
+        *args, return_done=True, return_state=True)
+    ref_tiles, ref_alpha = sb.blend_plain(*args)
+    assert float((tiles - ref_tiles).abs().max()) <= 1e-3
+    assert float((alpha - ref_alpha).abs().max()) <= 1e-3
+    assert torch.equal(rec, sb.pack_records(*args[3:7]))
+    assert torch.equal(tiles, torch.addcmul(acc, t_fin[:, :, None],
+                                            args[7][None, None, :]))
+    gen = torch.Generator(device=tiles.device).manual_seed(4)
+    go = torch.rand(tiles.shape, generator=gen, device=tiles.device) - 0.5
+    ga = torch.rand(alpha.shape, generator=gen, device=tiles.device) - 0.5
+    bwd = (gidx, starts, ends, done, rec, acc, t_fin, args[7], go, ga, ntx, nty)
+    used = int(ends[-1])
+    rows, g_bg = sb.blend_bwd(*bwd)
+    rows2, g_bg2 = sb.blend_bwd(*bwd)
+    ref_rows, ref_bg = sb.blend_bwd_plain(*bwd)
+    assert launch_counts["splat_blend_fwd"] == before["splat_blend_fwd"] + 1
+    assert launch_counts["splat_blend_bwd"] == before["splat_blend_bwd"] + 2
+    rows, rows2, ref_rows = rows[:used], rows2[:used], ref_rows[:used]
+    assert torch.equal(rows, rows2) and torch.equal(g_bg, g_bg2)
+    for lo, hi in ((0, 2), (2, 5), (5, 5 + ch), (5 + ch, 6 + ch)):
+        scale = float(ref_rows[:, lo:hi].abs().max())
+        err = float((rows[:, lo:hi] - ref_rows[:, lo:hi]).abs().max())
+        assert err <= 1e-3 * scale, (lo, hi, err, scale)
+    assert float((g_bg - ref_bg).abs().max()) <= 1e-3 * float(ref_bg.abs().max())
+    for t in range(ntx * nty):
+        lo, hi = int(starts[t]) + int(done[t]), int(ends[t])
+        assert float(rows[lo:hi].abs().sum()) == 0.0
+    return done.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch,shift", [(4, 0.0), (3, 0.0), (4, 6.0), (3, 6.0)])
+def test_blend_kernels_match_plain_on_smoke_view_on_card(ch, shift):
+    """K1 and K4 on view 0 of chip_smoke.py's 200,000-gaussian scene at
+    512×512, at ch 3 and 4, and near-opaque (opacity logits shifted by 6,
+    where α_raw passes the 0.999 gate)."""
+    dev = _card()
+    cs = _chip_smoke()
+    scene = cs.smoke_scene(200_000, dev)
+    args, _ = cs.splat_inputs(scene, cs.orbit_cameras(1, 512, dev), ch, shift)
+    done = _check_blend_kernels(args)
+    assert max(done) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [3, 4])
+def test_blend_kernels_match_plain_on_tile_kinds_on_card(ch):
+    """K1 and K4 on an empty tile, a one-instance tile, a tile that
+    saturates mid-list and a tile deeper than 5,000 instances; K1 blends
+    exactly the whole batches it needs."""
+    args, want_done = _synthetic_view(ch, _card())
+    assert _check_blend_kernels(args) == want_done
+
+
+@pytest.mark.cuda
+def test_blend_bwd_writes_every_row_of_the_tiles_on_card():
+    """K4 writes every row of [0, ends[-1]), zeros past n_done included,
+    and no row past it: the buffer needs no clearing."""
+    args, _ = _synthetic_view(4, _card())
+    gidx, starts, ends = args[:3]
+    tiles, alpha, done, rec, acc, t_fin = sb.blend(
+        *args, return_done=True, return_state=True)
+    go, ga = torch.ones_like(tiles), torch.ones_like(alpha)
+    rows = torch.full((gidx.shape[0], 10), float("nan"), device=tiles.device)
+    err = _lib.library().gc_splat_blend_bwd(
+        gidx.data_ptr(), starts.data_ptr(), ends.data_ptr(), done.data_ptr(),
+        rec.data_ptr(), acc.data_ptr(), t_fin.data_ptr(), go.data_ptr(),
+        ga.data_ptr(), args[7].data_ptr(), rows.data_ptr(), 4, 2, 4,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _lib.check(err, "splat_blend_bwd")
+    torch.cuda.synchronize()
+    used = int(ends[-1])
+    assert bool(torch.isfinite(rows[:used]).all())
+    assert bool(torch.isnan(rows[used:]).all())

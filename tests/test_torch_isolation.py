@@ -91,9 +91,9 @@ def test_wrappers_refuse_non_cpu_tensors_without_fallback(which):
                      torch.zeros(4, **meta), 2, 2)
         elif which == "splat_blend_bwd":
             i = torch.zeros(4, dtype=torch.int32, **meta)
-            sb.blend_bwd(i, i, i, torch.zeros(4, 2, **meta),
-                         torch.zeros(4, 3, **meta), torch.zeros(4, 4, **meta),
-                         torch.zeros(4, **meta), torch.zeros(4, **meta),
+            sb.blend_bwd(i, i, i, i, torch.zeros(4, 12, **meta),
+                         torch.zeros(4, 256, 4, **meta),
+                         torch.zeros(4, 256, **meta), torch.zeros(4, **meta),
                          torch.zeros(4, 256, 4, **meta),
                          torch.zeros(4, 256, **meta), 2, 2)
         else:

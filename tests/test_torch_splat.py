@@ -125,6 +125,28 @@ def test_binning_identical(n, H, W, two_class):
     assert int(got.ends[-1]) > 0
 
 
+@pytest.mark.parametrize("n,H,W,two_class", [
+    (60, 64, 128, True),
+    (400, 96, 160, True),
+    (120, 64, 64, False),
+])
+def test_tile_ranges_cover_the_sorted_buffer(n, H, W, two_class):
+    """The binning cases above: the tiles' [starts, ends) ranges tile
+    [0, ends[-1]) with no gap and no overlap, inside the sorted buffer, so a
+    kernel that writes every row of its tile's range writes every row the
+    per-gaussian sum reads."""
+    rng = np.random.default_rng(n)
+    xys, depths, radii, *_ = _random_inputs(rng, n, H, W)
+    kw = {} if two_class else dict(small_tiles_x=16, small_tiles_y=16)
+    b = trast._bin_and_sort(_t(xys), _t(depths), _t(radii), (W + 15) // 16,
+                            (H + 15) // 16, trast.RasterConfig(**kw))
+    starts, ends = b.starts.long(), b.ends.long()
+    assert int(starts[0]) == 0
+    assert torch.equal(starts[1:], ends[:-1])
+    assert bool((ends >= starts).all())
+    assert 0 < int(ends[-1]) <= b.gauss_idx.shape[0]
+
+
 def _blend_both(rng, xys, depths, radii, conics, colors, opac, bg, ntx, nty,
                 cfg_kw):
     jcfg = jrast.RasterConfig(**cfg_kw)

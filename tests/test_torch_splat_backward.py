@@ -10,6 +10,8 @@ magnitude, as tests/test_splat_blend.py holds the two JAX routes.
 """
 
 import importlib
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -152,7 +154,8 @@ def test_plain_backward_with_n_done_replays_exactly_those_instances():
     """With `n_done` the replays run over each tile's first n_done
     instances whatever the transmittance, which is what K4 does after K1:
     with n_done = the whole list, rows past saturation still carry the
-    T_fin term; with n_done = 0 every row is zero and g_bg = Σ go."""
+    T_fin term; with n_done = 0 every row is zero and g_bg = Σ go. (Both
+    in the two-replay form, with no forward state.)"""
     xys, depths, radii, conics, colors, opac, bg, ntx, nty, kw = _deep_case()
     cfg = trast.RasterConfig(**kw)
     b = trast._bin_and_sort(_t(xys), _t(depths), _t(radii), ntx, nty, cfg)
@@ -160,13 +163,15 @@ def test_plain_backward_with_n_done_replays_exactly_those_instances():
     go = torch.ones((ntx * nty, 256, 4))
     ga = torch.zeros((ntx * nty, 256))
     full = b.ends - b.starts
-    rows, g_bg = tblend.blend_bwd_plain(b.gauss_idx, b.starts, full, *args,
-                                        go, ga, ntx, nty, **kw)
+    rec = tblend.pack_records(*args[:4])
+    rows, g_bg = tblend.blend_bwd_plain(b.gauss_idx, b.starts, b.ends, full,
+                                        rec, None, None, args[4], go, ga,
+                                        ntx, nty, **kw)
     n_used = int(b.ends[-1])
     assert (rows[:n_used].abs().sum(1) > 0).all()
     rows0, g_bg0 = tblend.blend_bwd_plain(
-        b.gauss_idx, b.starts, torch.zeros_like(full), *args, go, ga, ntx,
-        nty, **kw)
+        b.gauss_idx, b.starts, b.ends, torch.zeros_like(full), rec, None,
+        None, args[4], go, ga, ntx, nty, **kw)
     assert float(rows0.abs().max()) == 0.0
     np.testing.assert_allclose(g_bg0.numpy(), np.full(4, ntx * nty * 256.0))
 
@@ -182,12 +187,13 @@ def test_plain_blend_counts_the_instances_it_blended():
         cfg = trast.RasterConfig(**kw)
         b = trast._bin_and_sort(_t(xys), _t(depths), _t(radii), ntx, nty, cfg)
         args = [_t(a) for a in (xys, conics, colors, opac, bg)]
-        _, alpha, done = tblend.blend(b.gauss_idx, b.starts, b.ends, *args,
-                                      ntx, nty, cfg.tile_capacity,
-                                      cfg.tile_chunk, return_done=True)
+        _, alpha, done, *state = tblend.blend(
+            b.gauss_idx, b.starts, b.ends, *args, ntx, nty, cfg.tile_capacity,
+            cfg.tile_chunk, return_done=True, return_state=True)
         assert done.dtype == torch.int32 and done.tolist() == want
         go = torch.ones((ntx * nty, 256, 4))
-        _, g_bg = tblend.blend_bwd(b.gauss_idx, b.starts, done, *args, go,
+        _, g_bg = tblend.blend_bwd(b.gauss_idx, b.starts, b.ends, done,
+                                   *state, args[4], go,
                                    torch.zeros((ntx * nty, 256)), ntx, nty)
         np.testing.assert_allclose(g_bg.numpy(),
                                    np.full(4, float((1 - alpha).sum())),
@@ -218,6 +224,111 @@ def test_reduce_by_slot_matches_jax():
     np.testing.assert_allclose(got.numpy(), direct.numpy(), atol=1e-5)
 
 
+def _forward_state(case):
+    """The case's binning, blend inputs and what the forward hands the
+    backward: (binned, args, done, records, acc, t_fin)."""
+    xys, depths, radii, conics, colors, opac, bg, ntx, nty, kw = case
+    cfg = trast.RasterConfig(**kw)
+    b = trast._bin_and_sort(_t(xys), _t(depths), _t(radii), ntx, nty, cfg)
+    args = [_t(a) for a in (xys, conics, colors, opac, bg)]
+    _, _, done, *state = tblend.blend(b.gauss_idx, b.starts, b.ends, *args,
+                                      ntx, nty, cfg.tile_capacity,
+                                      cfg.tile_chunk, return_done=True,
+                                      return_state=True)
+    return b, args, done, state
+
+
+def _cotangents(ntx, nty, seed=5):
+    rng = np.random.default_rng(seed)
+    return (_t(rng.uniform(-0.5, 0.5, (ntx * nty, 256, 4))),
+            _t(rng.uniform(-0.5, 0.5, (ntx * nty, 256))))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_from_forward_state_matches_two_replays(case):
+    """One replay that takes Q = g·acc and T_fin from the forward (K4's
+    form) gives the rows and g_bg of the two-replay form, in which a first
+    replay accumulates them, at the file's rtol 2e-4 and atol 2e-5 of each
+    group's largest |value| (S_i = Q − prefix_i cancels, Q is summed in
+    another order, and the forward ran on the conics before packing)."""
+    c = CASES[case]()
+    ntx, nty, kw = c[7], c[8], c[9]
+    b, args, done, (rec, acc, t_fin) = _forward_state(c)
+    go, ga = _cotangents(ntx, nty)
+    one = tblend.blend_bwd_plain(b.gauss_idx, b.starts, b.ends, done, rec,
+                                 acc, t_fin, args[4], go, ga, ntx, nty, **kw)
+    two = tblend.blend_bwd_plain(b.gauss_idx, b.starts, b.ends, done, rec,
+                                 None, None, args[4], go, ga, ntx, nty, **kw)
+    for lo, hi in ((0, 2), (2, 5), (5, 9), (9, 10)):
+        ref = two[0][:, lo:hi].numpy()
+        assert np.abs(ref).max() > 0
+        np.testing.assert_allclose(one[0][:, lo:hi].numpy(), ref, rtol=2e-4,
+                                   atol=2e-5 * np.abs(ref).max())
+    np.testing.assert_allclose(one[1].numpy(), two[1].numpy(), rtol=2e-4)
+
+
+@pytest.mark.parametrize("ch", [3, 4])
+def test_records_pack_and_unpack(ch):
+    """The 48-byte records hold x, y, the folded conic, the opacity and the
+    colours, zero-padded; unpacking gives the separate arrays back: exactly,
+    and the conics to one rounding of the fold (rtol 1e-6)."""
+    rng = np.random.default_rng(ch)
+    xys, _, _, conics, colors, opac, _ = _random_inputs(rng, 50, 64, 64, ch)
+    rec = tblend.pack_records(_t(xys), _t(conics), _t(colors), _t(opac))
+    assert rec.shape == (50, 12) and rec.dtype == torch.float32
+    assert float(rec[:, 6 + ch:].abs().max()) == 0.0
+    fold = np.asarray(tblend.CONIC_FOLD, np.float32)
+    np.testing.assert_array_equal(rec[:, 2:5].numpy(), conics * fold)
+    got = tblend.unpack_records(rec, ch)
+    for name, g, want in zip(("xys", "colors", "opacities"),
+                             (got[0], got[2], got[3]), (xys, colors, opac)):
+        np.testing.assert_array_equal(g.numpy(), want, err_msg=name)
+    np.testing.assert_allclose(got[1].numpy(), conics, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["TILE", "BATCH", "REC_FLOATS"])
+def test_layout_constants_match_the_kernels(name):
+    """The wrapper's tile size, batch (whole batches are what K1's n_done
+    counts) and record width are the ones csrc/splat_blend_common.cuh
+    compiles into K1 and K4."""
+    src = (pathlib.Path(tblend.__file__).parents[1] / "csrc"
+           / "splat_blend_common.cuh").read_text()
+    header = {}
+    for k, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        header[k] = eval(expr.replace("/", "//"), {}, dict(header))
+    want = dict(TILE=header["TS"], BATCH=header["BATCH"],
+                REC_FLOATS=4 * header["REC4"])[name]
+    assert getattr(tblend, name) == want
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reduce_by_slot_ignores_rows_past_the_last_tile(case):
+    """K4 leaves the rows at or past ends[-1] unset (the buffer is not
+    cleared): with them NaN the per-gaussian sums stay finite and equal."""
+    c = CASES[case]()
+    ntx, nty, kw = c[7], c[8], c[9]
+    b, args, done, state = _forward_state(c)
+    go, ga = _cotangents(ntx, nty)
+    rows, _ = tblend.blend_bwd_plain(b.gauss_idx, b.starts, b.ends, done,
+                                     *state, args[4], go, ga, ntx, nty, **kw)
+    used = int(b.ends[-1])
+    assert used < rows.shape[0]
+    cfg = trast.RasterConfig(**kw)
+    valid = torch.arange(rows.shape[0]) < b.ends[-1]
+
+    def reduce(r):
+        return trast.reduce_by_slot(
+            r, b.slot_idx, valid, b, args[0].shape[0],
+            cfg.small_tiles_x * cfg.small_tiles_y,
+            cfg.max_tiles_x * cfg.max_tiles_y)
+
+    nan_rows = rows.clone()
+    nan_rows[used:] = float("nan")
+    ref, got = reduce(rows), reduce(nan_rows)
+    assert bool(torch.isfinite(got).all()) and float(ref.abs().max()) > 0
+    assert torch.equal(got, ref)
+
+
 @pytest.mark.cuda
 def test_backward_kernel_matches_plain_on_card():
     """K4 on the card against its plain version with the same n_done (from
@@ -231,15 +342,19 @@ def test_backward_kernel_matches_plain_on_card():
         b = trast._bin_and_sort(_t(xys).to(dev), _t(depths).to(dev),
                                 _t(radii).to(dev), ntx, nty, trast.RasterConfig())
         args = [_t(a).to(dev) for a in (xys, conics, colors, opac, bg)]
-        _, _, done = tblend.blend(b.gauss_idx, b.starts, b.ends, *args, ntx,
-                                  nty, return_done=True)
+        _, _, done, *state = tblend.blend(b.gauss_idx, b.starts, b.ends,
+                                          *args, ntx, nty, return_done=True,
+                                          return_state=True)
         gen = torch.Generator(device=dev).manual_seed(0)
         go = torch.rand((ntx * nty, 256, 4), generator=gen, device=dev)
         ga = torch.rand((ntx * nty, 256), generator=gen, device=dev)
-        rows, g_bg = tblend.blend_bwd(b.gauss_idx, b.starts, done, *args,
-                                      go, ga, ntx, nty)
-        ref, ref_bg = tblend.blend_bwd_plain(b.gauss_idx, b.starts, done,
-                                             *args, go, ga, ntx, nty)
+        bwd = (b.gauss_idx, b.starts, b.ends, done, *state, args[4], go, ga,
+               ntx, nty)
+        used = int(b.ends[-1])
+        rows, g_bg = tblend.blend_bwd(*bwd)
+        rows = rows[:used]
+        ref, ref_bg = tblend.blend_bwd_plain(*bwd)
+        ref = ref[:used]
         for lo, hi in ((0, 2), (2, 5), (5, 9), (9, 10)):
             scale = float(ref[:, lo:hi].abs().max())
             err = float((rows[:, lo:hi] - ref[:, lo:hi]).abs().max())
