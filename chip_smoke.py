@@ -37,19 +37,45 @@ Phases, each printing one JSON line with its wall time:
                   gradients), each K4 call also held against its plain
                   version on its own inputs; then `reopt_split`: one warmed
                   full-width re-optimisation step timed in its parts;
-  6. main path    GaussCtrlPipeline.run(): render_reverse(), edit_images()
-                  and reoptimize() at SD-1.5 width with seeded random
-                  weights in bf16 on a seeded random scene of 200,000
-                  gaussians: finite outputs of the right shapes, finite
-                  re-optimisation losses and exact launch counts for every
-                  kernel;
+  6a. weights    the seeded random SD-1.5 weights written to a temporary
+                  diffusers layout (unet/, vae/, controlnet as fp16
+                  safetensors from the port's writer, the VAE mid-block
+                  under legacy names with nonzero q/k/v biases,
+                  text_encoder/pytorch_model.bin with position_ids, a small
+                  BPE tokenizer/, and beside them the text encoder as
+                  model.safetensors with its I64 position_ids) and read
+                  back by the port's loader, every tensor bit for bit, the
+                  safetensors text encoder also loaded strictly into an
+                  SD-1.5 text model, with bytes and write/read seconds;
+  6. main path    GaussCtrlPipeline.run() with the pipeline built from those
+                  directories (--pipeline.diffusion_ckpt/controlnet_ckpt,
+                  cast once to bf16): render_reverse(), edit_images() and
+                  reoptimize() at SD-1.5 width on a seeded random scene of
+                  200,000 gaussians: finite outputs of the right shapes,
+                  finite re-optimisation losses, the files' VAE biases and
+                  tokenizer in the pipeline, and exact launch counts for
+                  every kernel;
   7. composed     one edit step at SD-1.5 width on the fused route (K3 at
                   4096/1024/256 tokens) and on the composed route
                   (allow_fused=False: K2 for the self branch, K5/K6 for the
                   references), every composed call held in situ against K3
                   on its inputs, the two steps' outputs held to twice the
                   gap bf16 rounding alone sets there, and both routes timed
-                  per token level.
+                  per token level;
+  8. pretrain     splat.pretrain.pretrain at full width: 401 steps from
+                  100,000 grey seeds against 16 orbit views (512x512) of
+                  the smoke scene, across 128/256/512 px, three refines, a
+                  doubling of the buffer with Adam's state moved onto the
+                  new leaves, an opacity reset and cull-only passes; K1 and
+                  K4 held in situ at each resolution, the densify
+                  candidates from K4's xy rows against those from the plain
+                  backward's (agreeing outside a stated band around the
+                  threshold), exact K1/K4 launch counts, births, a rising
+                  eval PSNR, and ms per step at each resolution;
+  9. splat_train  python -m gaussctrl_tpu_torch.cli.splat_train on
+                  data/example_scene (300 steps, one refine, the resolution
+                  ramp) in a subprocess: its checkpoint (loaded back),
+                  dataparser_transforms.json, events.jsonl and renders.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero, and
@@ -66,8 +92,10 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -115,6 +143,10 @@ REOPT_STEPS = 100
 # instances K1 blended (whole batches of 128 up to saturation).
 OPS_PER_PAIR_FWD = 30
 OPS_PER_PAIR_BWD = 76
+# K1 against its plain version, absolute: the same fp32 function with
+# ex2.approx, the transmittance product taken in another order; depth
+# (channel 4) reaches ~5, so 1e-3
+K1_TOL = 1e-3
 # K4 rows held per group (xy, conic, colour, opacity) against the plain
 # backward on the same inputs: the largest error over the group's largest
 # |value| (fp32 sums over 256 pixels, and S_i = Q - prefix_i, in another
@@ -427,10 +459,8 @@ def check_k1(scene, cams, reps):
     err = max((tiles - ref_tiles).abs().max().item(),
               (alpha - ref_alpha).abs().max().item())
     rec_err = (records - sb.pack_records(*args[3:7])).abs().max().item()
-    # tolerance: the same fp32 function with ex2.approx, the transmittance
-    # product taken in another order; depth (channel 4) reaches ~5, so 1e-3
-    # absolute. The records are the same products: bit for bit.
-    tol = 1e-3
+    # the records are the same products as pack_records': bit for bit
+    tol = K1_TOL
     pairs = float(done.sum().item()) * 256
     used = int(b.ends[-1].item())
     n = args[3].shape[0]
@@ -1067,8 +1097,14 @@ def reopt_split(reps: int = 5):
 # phase 6: the main path
 # ---------------------------------------------------------------------------
 
-def main_path(args, card):
+def main_path(args, card, ckpt_dirs, written):
+    """`GaussCtrlPipeline.run()` on the SD-1.5 weights read from the
+    diffusers directories `ckpt_dirs` (phase 6a) through
+    `GaussCtrlConfig.diffusion_ckpt/controlnet_ckpt`; `written` holds the
+    files' dicts, against which the VAE's mid-block q/k/v biases and the
+    tokenizer are checked after loading."""
     import torch
+    from gaussctrl_tpu_torch.diffusion.clip import CLIPTokenizer
     from gaussctrl_tpu_torch.diffusion.config import SDConfig
     from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
     from gaussctrl_tpu_torch.pipeline.gaussctrl import (GaussCtrlConfig,
@@ -1080,12 +1116,23 @@ def main_path(args, card):
                           reverse_prompt="a photo of a bear statue",
                           guidance_scale=5.0, num_inference_steps=args.steps,
                           chunk_size=CHUNK, ref_view_num=REFS,
-                          render_rate=args.reopt_steps)
+                          render_rate=args.reopt_steps,
+                          diffusion_ckpt=ckpt_dirs[0],
+                          controlnet_ckpt=ckpt_dirs[1])
     pipe = GaussCtrlPipeline(cfg, scene, cams, sd_config=SDConfig.sd15(),
-                             dtype=torch.bfloat16, device=DEVICE,
-                             weights_seed=WEIGHTS_SEED)
+                             dtype=torch.bfloat16, device=DEVICE)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    vae_file = written["sd15/vae/diffusion_pytorch_model.safetensors"]
+    attn = pipe.models.vae.decoder.mid_block.attentions[0]
+    loaded_from_disk = dict(
+        vae_qkv_biases=all(
+            torch.equal(getattr(attn, f"to_{n}").bias.cpu(),
+                        vae_file[f"decoder.mid_block.attentions.0.{old}.bias"]
+                        .to(torch.bfloat16))
+            for n, old in (("q", "query"), ("k", "key"), ("v", "value"))),
+        vae_biases_nonzero=bool(attn.to_q.bias.abs().max() > 0),
+        bpe_tokenizer=isinstance(pipe.tokenizer, CLIPTokenizer))
 
     layers = attention_layer_counts(pipe.models)
     n_self = len(layers["unet"]) + len(layers["controlnet"])
@@ -1144,6 +1191,8 @@ def main_path(args, card):
     finite["scene"] = all(bool(torch.isfinite(getattr(pipe.scene, k)).all())
                           for k in TRAIN_FIELDS)
     rec = dict(phase="main_path", card=card, views=V, steps=args.steps,
+               weights="diffusers directories on disk (phase weights)",
+               loaded_from_disk=loaded_from_disk,
                gaussians=GAUSSIANS, size=H, refs=pipe.ref_indices,
                edit_batches=n_chunks,
                chunk_size=cfg.chunk_size, setup_s=setup_s,
@@ -1167,6 +1216,9 @@ def main_path(args, card):
                                  f"expected {shp}")
     if not all(finite.values()):
         raise AssertionError(f"non-finite outputs: {finite}")
+    if not all(loaded_from_disk.values()):
+        raise AssertionError(f"the pipeline's weights are not the files': "
+                             f"{loaded_from_disk}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
     return rec, pipe
@@ -1295,6 +1347,488 @@ def check_composed(pipe, steps: int, reps: int):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 6a: SD-1.5 weights through a diffusers layout on disk
+# ---------------------------------------------------------------------------
+
+# the VAE mid-block's attention under the names of older diffusers files
+LEGACY_VAE_ATTN = {"to_q": "query", "to_k": "key", "to_v": "value",
+                   "to_out.0": "proj_attn"}
+# a small CLIP-style BPE vocabulary for tokenizer/ (ids far below 49,406)
+MINI_VOCAB = ["a", "b", "e", "h", "o", "p", "r", "s", "t", "</w>", "a</w>",
+              "o</w>", "r</w>", "t</w>", "ph", "ot", "phot", "photo</w>",
+              "be", "ar</w>", "bear</w>"]
+MINI_MERGES = ["p h", "o t", "ph ot", "phot o</w>", "b e", "a r</w>",
+               "be ar</w>"]
+
+
+def write_diffusers_dirs(root: str):
+    """The seeded random SD-1.5 weights (`init_params(WEIGHTS_SEED)`) in a
+    diffusers layout under `root`: unet/, vae/ and controlnet/ as fp16
+    `diffusion_pytorch_model.safetensors` from the port's writer, the VAE
+    mid-block under the legacy query/key/value/proj_attn names with nonzero
+    q/k/v biases (seeded; the networks' own are zero), text_encoder/ as an
+    fp16 `pytorch_model.bin` with a `position_ids` buffer (the loader asks
+    for `model.*` and falls back), and tokenizer/{vocab.json,merges.txt}.
+    Beside the pipeline, text_encoder_st/ holds the same text encoder as
+    transformers saves it today: `model.safetensors` with the I64
+    `position_ids` buffer. Returns ((sd_dir, cn_dir), {relative file: the
+    dict written}, seconds to write)."""
+    import torch
+    from gaussctrl_tpu_torch.diffusion import weights as w
+    from gaussctrl_tpu_torch.diffusion.config import SDConfig
+    from gaussctrl_tpu_torch.diffusion.sample import SDModels
+    models = SDModels.create(SDConfig.sd15(), device=DEVICE)
+    models.init_params(WEIGHTS_SEED)
+    sds = {name: {k: v.to("cpu", torch.float16)
+                  for k, v in mod.state_dict().items()}
+           for name, mod in zip(("unet", "controlnet", "vae", "text"),
+                                models.modules())}
+    del models
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(5)
+    vae = {}
+    for k, v in sds["vae"].items():
+        head, leaf = k.rsplit(".", 1)
+        if ".mid_block.attentions.0." in k:
+            if leaf == "bias" and head.endswith(("to_q", "to_k", "to_v")):
+                v = (0.05 * torch.randn(v.shape, generator=gen)).half()
+            for new, old in LEGACY_VAE_ATTN.items():
+                if head.endswith("." + new):
+                    head = head[: -len(new)] + old
+        vae[f"{head}.{leaf}"] = v
+    text = dict(sds["text"])
+    n_pos = text["text_model.embeddings.position_embedding.weight"].shape[0]
+    text["text_model.embeddings.position_ids"] = torch.arange(n_pos)[None]
+    sd_dir, cn_dir = os.path.join(root, "sd15"), os.path.join(root, "controlnet")
+    files = {"sd15/unet/diffusion_pytorch_model.safetensors": sds["unet"],
+             "sd15/vae/diffusion_pytorch_model.safetensors": vae,
+             "controlnet/diffusion_pytorch_model.safetensors": sds["controlnet"],
+             "sd15/text_encoder/pytorch_model.bin": text,
+             "text_encoder_st/model.safetensors": text}
+    t0 = time.perf_counter()
+    for rel, sd in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if rel.endswith(".bin"):
+            torch.save(sd, path)
+        else:
+            w.save_safetensors(path, sd)
+    tok = os.path.join(sd_dir, "tokenizer")
+    os.makedirs(tok)
+    vocab = {t: i for i, t in enumerate(MINI_VOCAB)}
+    with open(os.path.join(tok, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(tok, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(MINI_MERGES) + "\n")
+    return (sd_dir, cn_dir), files, time.perf_counter() - t0
+
+
+def check_weights(root: str):
+    """Write the diffusers layout, read every file back with the port's
+    loader (`weights.load_state_dict`, its own safetensors reader) and hold
+    every tensor bit for bit against what was written, floats widened to
+    float32 and the I64 `position_ids` as stored; then load the
+    safetensors text encoder strictly into an SD-1.5 text model (its
+    `position_ids` dropped) and hold every weight against the file."""
+    import torch
+    from gaussctrl_tpu_torch.diffusion import weights as w
+    from gaussctrl_tpu_torch.diffusion.clip import CLIPTextModel
+    from gaussctrl_tpu_torch.diffusion.config import SDConfig
+    t0 = time.perf_counter()
+    dirs, files, write_s = write_diffusers_dirs(root)
+    nbytes = sum(os.path.getsize(os.path.join(root, rel)) for rel in files)
+    t1 = time.perf_counter()
+    mismatched, checked = [], 0
+    for rel, sd in files.items():
+        d = os.path.dirname(os.path.join(root, rel))
+        stem = "model" if "text_encoder" in rel else "diffusion_pytorch_model"
+        got = w.load_state_dict(d, stem)
+        if got.keys() != sd.keys():
+            mismatched.append((rel, "keys"))
+        for k, v in sd.items():
+            checked += 1
+            want = v.to(torch.float32) if v.is_floating_point() else v
+            if got[k].dtype != want.dtype or not torch.equal(got[k], want):
+                mismatched.append((rel, k))
+    read_s = time.perf_counter() - t1
+    text_file = files["text_encoder_st/model.safetensors"]
+    with torch.device(DEVICE):
+        text_model = CLIPTextModel(SDConfig.sd15().text)
+    w.load_module(text_model, "text", w.load_state_dict(
+        os.path.join(root, "text_encoder_st"), "model"))
+    text_params = text_model.state_dict()
+    if text_params.keys() != set(text_file) - {
+            "text_model.embeddings.position_ids"}:
+        mismatched.append(("text_encoder_st -> CLIPTextModel", "keys"))
+    for k, v in text_params.items():
+        if not torch.equal(v.cpu(), text_file[k].to(torch.float32)):
+            mismatched.append(("text_encoder_st -> CLIPTextModel", k))
+    del text_model, text_params
+    rec = dict(phase="weights", bytes=nbytes, files=len(files),
+               tensors=checked, write_s=write_s, read_s=read_s,
+               write_gb_per_s=nbytes / write_s / 1e9,
+               read_gb_per_s=nbytes / read_s / 1e9, mismatched=mismatched[:8],
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    if mismatched:
+        raise AssertionError(f"weights read back differ from those written: "
+                             f"{mismatched[:8]}")
+    return rec, dirs, files
+
+
+# ---------------------------------------------------------------------------
+# phase 8: from-scratch pre-training with densification at full width
+# ---------------------------------------------------------------------------
+
+# 16 orbit views at 512x512 of the smoke scene; 100,000 of its means,
+# jittered, as grey seeds in 151,552 slots; 401 steps crossing 128, 256 and
+# 512 px, refines at 100, 150 and 300 (the pause after the opacity reset
+# at 200 skips 200 and 250), cull-only passes at 350 and 400. The
+# statistic's threshold sits near its 80th percentile at the first refine
+# (splatfacto's 2e-4 is past the 99.7th on these random views), so the
+# refines split tens of thousands of gaussians, fill the buffer past 80%
+# by step 150 and double it, and the step-300 refine places its children
+# in the grown buffer; the opacity cull is below the seeds' 0.1 (at
+# splatfacto's 0.1 the first refine culls half of them).
+PRETRAIN_VIEWS, PRETRAIN_SEEDS, PRETRAIN_STEPS = 16, 100_000, 401
+PRETRAIN_GRAD_THRESH, PRETRAIN_CULL_OPACITY = 5e-6, 0.02
+# the split/duplicate candidates from K4's statistic and from the plain
+# backward's must agree for every gaussian whose (plain) statistic lies
+# outside ±DECISION_BAND × grad_thresh. K4's rows sit within ~6e-5 of the
+# largest row of their group; a gaussian near the threshold has a small
+# gradient summed from rows that cancel, so its relative error is larger,
+# and the band allows 1%.
+DECISION_BAND = 1e-2
+
+
+def pretrain_config():
+    from gaussctrl_tpu_torch.splat.densify import DensifyConfig
+    from gaussctrl_tpu_torch.splat.pretrain import PretrainConfig
+    return PretrainConfig(
+        num_steps=PRETRAIN_STEPS, eval_every=200, sh_degree_interval=100,
+        num_downscales=2, resolution_schedule=100,
+        densify=DensifyConfig(warmup=50, refine_every=50, stop_at=350,
+                              reset_alpha_every=200,
+                              grad_thresh=PRETRAIN_GRAD_THRESH,
+                              cull_opacity=PRETRAIN_CULL_OPACITY))
+
+
+def window_refines(d, n_views: int) -> list:
+    """The steps of `pretrain`'s refines inside the densify window (those
+    that split and duplicate): every refine_every steps in (warmup,
+    stop_at), paused for n_views + refine_every steps after each opacity
+    reset."""
+    return [s for s in range(d.refine_every, d.stop_at, d.refine_every)
+            if s > d.warmup and (s % d.reset_alpha_every if d.reset_alpha_every
+                                 else s) > n_views + d.refine_every]
+
+
+def densify_agreement(avg_k, avg_p, alive, thresh: float, band: float) -> dict:
+    """The refine's split/duplicate candidates (alive, statistic above
+    `thresh`) from the kernel's statistic `avg_k` against those from the
+    plain one `avg_p`: how many differ outside and inside the band
+    ±band·thresh around the threshold, how many lie inside it, and the
+    statistic's relative error near the threshold (plain in [thresh/2,
+    2·thresh])."""
+    hk = (avg_k > thresh) & alive
+    hp = (avg_p > thresh) & alive
+    inside = alive & ((avg_p - thresh).abs() <= band * thresh)
+    differ = hk != hp
+    near = alive & (avg_p >= 0.5 * thresh) & (avg_p <= 2 * thresh)
+    rel = ((avg_k - avg_p).abs() / avg_p.clamp_min(1e-30))[near]
+    return dict(alive=int(alive.sum()), candidates=int(hk.sum()),
+                candidates_plain=int(hp.sum()), inside_band=int(inside.sum()),
+                disagree_outside=int((differ & ~inside).sum()),
+                disagree_inside=int((differ & inside).sum()),
+                near_threshold=int(near.sum()),
+                max_rel_err_near=float(rel.max()) if rel.numel() else 0.0)
+
+
+def check_pretrain():
+    """`splat.pretrain.pretrain` at full width: ground truth rendered from
+    the smoke scene (200,000 gaussians, SH 3) at PRETRAIN_VIEWS orbit views,
+    seeds from PRETRAIN_SEEDS of its means jittered by 0.01, in grey;
+    every step through K1 and K4. At each resolution the first K1 and K4
+    calls are held in situ against their plain versions on their own
+    inputs (K1_TOL, K4_SCALED_TOL). Until the window's last refine every
+    step's K4 rows are also replayed by the plain backward and summed per
+    gaussian, so a shadow DensifyState accumulates the plain statistic; at
+    each window refine the candidates of the two must agree outside
+    ±DECISION_BAND of grad_thresh. The buffer must grow inside the window,
+    and each growth must move Adam onto the new leaves with every group's
+    step kept, its moments' old rows kept and its new rows zero. Then ms
+    per step at each resolution, on the trained scene, by CUDA events
+    (warmed, 10 steps, unsynchronised as the loop runs)."""
+    import importlib
+    import numpy as np
+    import torch
+    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
+    from gaussctrl_tpu_torch.ops import splat_blend as sb
+    from gaussctrl_tpu_torch.splat.densify import init_state
+    from gaussctrl_tpu_torch.splat.render import render_camera
+    from gaussctrl_tpu_torch.splat.trainer import make_optimizer, trainable
+    pre = importlib.import_module("gaussctrl_tpu_torch.splat.pretrain")
+    rast = importlib.import_module("gaussctrl_tpu_torch.splat.rasterize")
+    t0 = time.perf_counter()
+    gt_scene = smoke_scene(GAUSSIANS, DEVICE)
+    cams = orbit_cameras(PRETRAIN_VIEWS, SIZE, DEVICE)
+    black = torch.zeros(3, device=DEVICE)
+    with torch.no_grad():
+        images = torch.stack([render_camera(gt_scene, cams, i, black)["rgb"]
+                              for i in range(len(cams))]).cpu().numpy()
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    seeds = (gt_scene.means[:PRETRAIN_SEEDS] + 0.01 * torch.randn(
+        (PRETRAIN_SEEDS, 3), generator=gen, device=DEVICE)).cpu().numpy()
+    del gt_scene
+    cfg = pretrain_config()
+    d = cfg.densify
+    shadow_until = max(window_refines(d, PRETRAIN_VIEWS))
+    st = dict(step=0, shadow=None, plain_rows=None, plain_xy=None)
+    held, decisions, log, losses, growths = {}, [], [], [], []
+    orig = dict(step=pre.pretrain_step, acc=pre.accumulate, refine=pre.refine,
+                adopt=pre.adopt_params, blend=rast.blend, bwd=rast.blend_bwd,
+                reduce=rast.reduce_by_slot)
+
+    def step_held(scene, opt, dstate, lr_step, *a, **kw):
+        st["step"] = lr_step
+        dstate, m, g = orig["step"](scene, opt, dstate, lr_step, *a, **kw)
+        losses.append(m["loss"])
+        return dstate, m, g
+
+    def shadow_on():
+        return st["step"] <= shadow_until
+
+    def adopt_held(opt, scene):
+        """Adam's state before and after it moves onto the grown leaves."""
+        before = {g["name"]: {k: torch.as_tensor(v).clone() for k, v in
+                              opt.state[g["params"][0]].items()}
+                  for g in opt.param_groups}
+        orig["adopt"](opt, scene)
+        rec, ok = dict(step=st["step"], capacity=scene.num_gaussians), True
+        for g in opt.param_groups:
+            leaf, old = g["params"][0], before[g["name"]]
+            new = opt.state.get(leaf, {})
+            n = old["exp_avg"].shape[0]
+            ok &= (leaf is getattr(scene, g["name"])
+                   and leaf.shape[0] == scene.num_gaussians
+                   and float(new["step"]) == float(old["step"])
+                   and all(torch.equal(new[k][:n], old[k])
+                           and not new[k][n:].any()
+                           for k in ("exp_avg", "exp_avg_sq")))
+        rec.update(adam_kept=bool(ok), steps=sorted(
+            {float(opt.state[g["params"][0]]["step"])
+             for g in opt.param_groups}))
+        growths.append(rec)
+
+    def blend_held(*a, **kw):
+        out = orig["blend"](*a, **kw)
+        key = f"k1@{a[8] * 16}x{a[9] * 16}"
+        if key not in held:
+            ref_tiles, ref_alpha = sb.blend_plain(*a[:10])
+            held[key] = max((out[0] - ref_tiles).abs().max().item(),
+                            (out[1] - ref_alpha).abs().max().item())
+        return out
+
+    def bwd_held(*a):
+        rows, g_bg = orig["bwd"](*a)
+        key = f"k4@{a[-2] * 16}x{a[-1] * 16}"
+        if key not in held or shadow_on():
+            ref_rows, ref_bg = sb.blend_bwd_plain(*a)
+            if key not in held:
+                used = int(a[2][-1].item())
+                held[key] = k4_errors(rows[:used], g_bg, ref_rows[:used],
+                                      ref_bg)
+            if shadow_on():
+                st["plain_rows"] = ref_rows
+        return rows, g_bg
+
+    def reduce_held(rows, *rest):
+        out = orig["reduce"](rows, *rest)
+        if st["plain_rows"] is not None:
+            st["plain_xy"] = orig["reduce"](st["plain_rows"], *rest)[:, 0:2]
+            st["plain_rows"] = None
+        return out
+
+    def acc_held(dstate, g, visible, width, height, radii=None):
+        out = orig["acc"](dstate, g, visible, width, height, radii=radii)
+        if shadow_on():
+            if st["shadow"] is None:
+                st["shadow"] = dstate
+            st["shadow"] = orig["acc"](st["shadow"], st["plain_xy"], visible,
+                                       width, height, radii=radii)
+        return out
+
+    def refine_held(scene, dstate, generator, dcfg, **kw):
+        if st["shadow"] is not None and not kw.get("cull_only"):
+            rec = densify_agreement(dstate.avg_grad(), st["shadow"].avg_grad(),
+                                    dstate.alive, dcfg.grad_thresh,
+                                    DECISION_BAND)
+            decisions.append(dict(step=st["step"], **rec))
+        st["shadow"] = None
+        return orig["refine"](scene, dstate, generator, dcfg, **kw)
+
+    patches = [(pre, "pretrain_step", step_held), (pre, "accumulate", acc_held),
+               (pre, "refine", refine_held), (pre, "adopt_params", adopt_held),
+               (rast, "blend", blend_held),
+               (rast, "blend_bwd", bwd_held),
+               (rast, "reduce_by_slot", reduce_held)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    with _patched(patches):
+        scene, metrics = pre.pretrain(
+            cams, images, seeds, np.full_like(seeds, 0.5), cfg, sh_degree=3,
+            seed=0, log_fn=lambda s, m: log.append((s, m)), device=DEVICE)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    counts = dict(launch_counts)
+    n_evals = len(range(0, PRETRAIN_STEPS, cfg.eval_every)) + 1
+    expected = dict.fromkeys(counts, 0)
+    expected["splat_blend_fwd"] = PRETRAIN_STEPS + 4 * n_evals
+    expected["splat_blend_bwd"] = PRETRAIN_STEPS
+
+    # the buffer's start as pretrain sizes it, then every growth
+    capacity = min(int(cfg.capacity_mult * PRETRAIN_SEEDS),
+                   -(-int(1.5 * PRETRAIN_SEEDS) // 4096) * 4096)
+    capacity_start, refines, quantiles = capacity, [], []
+    for s, m in log:
+        if "capacity" in m:
+            capacity = m["capacity"]
+            refines[-1]["capacity"] = capacity
+        if "n_born" in m:
+            refines.append(dict(step=s, capacity=capacity, **m))
+        if "grad_p50" in m:
+            quantiles.append(dict(step=s, **m))
+    evals = [dict(step=s, **m) for s, m in log if "eval_psnr" in m]
+    isect = max(m["isect_frac"] for _, m in log if "isect_frac" in m)
+    loss_t = torch.stack(losses).float().cpu()
+
+    # ms per step at each resolution, on the trained scene
+    tscene = trainable(init_state(scene, scene.num_gaussians)[0])
+    opt = make_optimizer(tscene, cfg.train)
+    dst = init_state(scene, scene.num_gaussians)[1]
+    pyramid = pre._pyramid(images, cfg, DEVICE)
+    step_ms = {}
+    for f in (4, 2, 1):
+        def one(f=f):
+            pre.pretrain_step(tscene, opt, dst, 0, cams.c2w[0],
+                              cams.fx[0] / f, cams.fy[0] / f, cams.cx[0] / f,
+                              cams.cy[0] / f, pyramid[f][0], black, SIZE // f,
+                              SIZE // f, 3)
+        step_ms[f"{SIZE // f}px"] = cuda_ms(one, 10)
+    del tscene, opt, pyramid
+
+    k4_worst = {}
+    for k, errs in held.items():
+        if k.startswith("k4"):
+            for g, v in errs.items():
+                if g != "max_abs_err":
+                    k4_worst[g] = max(k4_worst.get(g, 0.0), v)
+    rec = dict(phase="pretrain", views=PRETRAIN_VIEWS, seeds=PRETRAIN_SEEDS,
+               steps=PRETRAIN_STEPS, size=SIZE,
+               gaussians_end=scene.num_gaussians,
+               capacity_start=capacity_start, capacity_end=capacity,
+               refines=refines, grad_quantiles=quantiles, evals=evals,
+               eval_psnr_start=evals[0]["eval_psnr"],
+               eval_psnr_end=evals[-1]["eval_psnr"],
+               isect_frac_max=isect, loss_first=float(loss_t[0]),
+               loss_last=float(loss_t[-1]),
+               losses_finite=bool(torch.isfinite(loss_t).all()),
+               n_born=sum(r["n_born"] for r in refines),
+               in_situ=held, in_situ_tol=dict(k1=K1_TOL, k4=K4_SCALED_TOL),
+               growths=growths, decisions=decisions,
+               decision_band=DECISION_BAND,
+               grad_thresh=d.grad_thresh, launches=counts,
+               expected_launches=expected, loop_s=loop_s,
+               step_ms=step_ms, seconds=time.perf_counter() - t0)
+    emit(rec)
+    sizes = [f"{SIZE // f}x{SIZE // f}" for f in (4, 2, 1)]
+    bad = [k for k in (f"k{i}@{s}" for i in (1, 4) for s in sizes)
+           if k not in held]
+    bad += [k for k, v in held.items() if k.startswith("k1") and not v <= K1_TOL]
+    bad += [k for k, v in k4_worst.items() if not v <= K4_SCALED_TOL]
+    bad += [f"decisions@{r['step']}" for r in decisions if r["disagree_outside"]]
+    if [r["step"] for r in decisions] != window_refines(d, PRETRAIN_VIEWS):
+        bad.append(f"refines held at {[r['step'] for r in decisions]}, "
+                   f"expected {window_refines(d, PRETRAIN_VIEWS)}")
+    if not any(g["step"] < shadow_until for g in growths):
+        bad.append("the buffer did not grow before the window's last refine")
+    bad += [f"adam@{g['step']}" for g in growths if not g["adam_kept"]]
+    if capacity != capacity_start * 2 ** len(growths):
+        bad.append(f"capacity {capacity} after {len(growths)} growths")
+    if not rec["losses_finite"] or not math.isfinite(rec["eval_psnr_end"]):
+        bad.append("non-finite loss")
+    if rec["n_born"] == 0:
+        bad.append("no births")
+    if not rec["eval_psnr_end"] > rec["eval_psnr_start"]:
+        bad.append("eval PSNR did not rise")
+    if counts != expected:
+        bad.append(f"launches {counts} != {expected}")
+    if bad:
+        raise AssertionError(f"pre-training failed its checks: {bad}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the pre-training CLI on the example scene
+# ---------------------------------------------------------------------------
+
+# 300 steps at 50, 100 and 200 px (both ends with partial tiles), one
+# refine at step 200 (the window is 50-250 and the pause 12 + 100 steps)
+SPLAT_TRAIN_FLAGS = ["--trainer.num_steps", "300",
+                     "--trainer.num_downscales", "2",
+                     "--trainer.resolution_schedule", "100",
+                     "--trainer.eval_every", "100",
+                     "--trainer.densify.warmup", "50",
+                     "--trainer.densify.refine_every", "100",
+                     "--trainer.densify.stop_at", "250",
+                     "--trainer.densify.reset_alpha_every", "1000"]
+
+
+def check_splat_train(out_root: str):
+    """`python -m gaussctrl_tpu_torch.cli.splat_train --data
+    data/example_scene` in a subprocess on the card: it exits 0 and writes
+    the final checkpoint (loaded back by `core.ckpt.load_scene_npz`, finite),
+    dataparser_transforms.json, events.jsonl with one refine, and four
+    renders."""
+    import torch
+    from gaussctrl_tpu_torch.core.ckpt import load_scene_npz
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "gaussctrl_tpu_torch.cli.splat_train",
+           "--data", os.path.join(HERE, "data", "example_scene"),
+           "--output-dir", out_root, *SPLAT_TRAIN_FLAGS]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"splat_train exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    (run,) = os.listdir(os.path.join(out_root, "example_scene", "splat"))
+    run = os.path.join(out_root, "example_scene", "splat", run)
+    ckpt = os.path.join(run, "ckpts", "step-000000300.npz")
+    renders = sorted(os.listdir(os.path.join(run, "final_renders")))
+    with open(os.path.join(run, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    scene = load_scene_npz(ckpt)
+    finite = all(bool(torch.isfinite(getattr(scene, k)).all())
+                 for k in TRAIN_FIELDS)
+    refines = [e for e in events if "n_born" in e]
+    evals = [e for e in events if "eval_psnr" in e]
+    rec = dict(phase="splat_train", seconds=time.perf_counter() - t0,
+               gaussians=scene.num_gaussians, finite=finite, renders=renders,
+               refines=refines, eval_psnr=[e["eval_psnr"] for e in evals],
+               transforms=os.path.exists(
+                   os.path.join(run, "dataparser_transforms.json")),
+               stdout_tail=proc.stdout.strip().splitlines()[-3:])
+    emit(rec)
+    if not (finite and len(renders) == 4 and len(refines) == 1
+            and rec["transforms"] and scene.num_gaussians > 0):
+        raise AssertionError(f"splat_train's outputs fail their checks: {rec}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--views", type=int, default=8)
@@ -1370,13 +1904,31 @@ def main() -> int:
     split = reopt_split()
     torch.cuda.empty_cache()
 
-    # 6. the main path
-    mp, pipe = main_path(args, card)
+    # 6a. SD-1.5 weights through a diffusers layout on disk, and
+    # 6. the main path on them
+    weights_root = tempfile.mkdtemp(prefix="gaussctrl_sd15_")
+    try:
+        weights, ckpt_dirs, written = check_weights(weights_root)
+        mp, pipe = main_path(args, card, ckpt_dirs, written)
+    finally:
+        shutil.rmtree(weights_root, ignore_errors=True)
+    del written
 
     # 7. the composed cross-view route against the fused one
     composed = check_composed(pipe, args.steps, REPS // 4)
     del pipe
     torch.cuda.empty_cache()
+
+    # 8. from-scratch pre-training with densification at full width
+    pretrain = check_pretrain()
+    torch.cuda.empty_cache()
+
+    # 9. the pre-training CLI on the example scene
+    splat_root = tempfile.mkdtemp(prefix="gaussctrl_splat_")
+    try:
+        splat_train = check_splat_train(splat_root)
+    finally:
+        shutil.rmtree(splat_root, ignore_errors=True)
 
     # per-kernel summary: K2/K3/K5 times are per DDIM step of the main path
     # (each level's time times its self-attention layers in UNet + ControlNet)
@@ -1489,8 +2041,9 @@ def main() -> int:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build=build, k1=k1, k4=k4, k2=k2, k3=k3,
                            k5=k5, k6=k6, sass=sass, train=train,
-                           reopt_split=split, main_path=mp,
-                           composed=composed,
+                           reopt_split=split, weights=weights,
+                           main_path=mp, composed=composed,
+                           pretrain=pretrain, splat_train=splat_train,
                            kernels=kernels, total_s=total_s),
                       f, indent=1)
     emit({"kernels": kernels})

@@ -12,7 +12,9 @@ re-optimised scene.
 The flags are those of the JAX package: --pipeline.*,
 --pipeline.datamanager.*, --optimizers.*, --raster.*, --tiny-sd, plus
 --device, which defaults to the card; pass `--device cpu` to run on the
-CPU. Text-prompted masks (--pipeline.langsam_obj) are not ported yet.
+CPU. --pipeline.diffusion_ckpt and --pipeline.controlnet_ckpt name local
+diffusers directories to load the networks from (random weights without
+them). Text-prompted masks (--pipeline.langsam_obj) are not ported yet.
 Images are written with PIL, imported when they are written.
 """
 

@@ -13,7 +13,10 @@ inverts the JAX package's checkpoint rules (`diffusion/weights.py`):
   `a.0.b` index segments       ← `a_0/b`; the UNet's encoder half lives
                                  under `encoder/` in the flax tree
 
-Every leaf on both sides must be used exactly once, or it raises.
+Every leaf on both sides must be used exactly once, or it raises, with one
+exception: the JAX VAE has no mid-block q/k/v biases, so a tree without
+`attn/to_q/bias` (and k, v) leaves sets the port's to zero, and a tree that
+has them (`weights.convert_vae` emits them) fills them.
 """
 
 from __future__ import annotations
@@ -120,6 +123,11 @@ def flax_source(kind: str, key: str, shape) -> Tuple[str, Callable]:
     return head + "/scale", lambda a: a
 
 
+def _is_vae_qkv_bias(path: str) -> bool:
+    return path.endswith(("/attn/to_q/bias", "/attn/to_k/bias",
+                          "/attn/to_v/bias"))
+
+
 @torch.no_grad()
 def load_module(module: torch.nn.Module, kind: str,
                 tree: Dict[str, Any]) -> None:
@@ -128,6 +136,9 @@ def load_module(module: torch.nn.Module, kind: str,
     used = set()
     for key, param in module.state_dict().items():
         path, convert = flax_source(kind, key, tuple(param.shape))
+        if path not in flat and kind == "vae" and _is_vae_qkv_bias(path):
+            param.zero_()
+            continue
         if path not in flat:
             raise KeyError(f"{kind}: no flax leaf {path!r} for {key!r}")
         arr = np.ascontiguousarray(convert(flat[path]))

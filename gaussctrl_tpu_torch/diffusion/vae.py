@@ -5,7 +5,9 @@ mean (deterministic) scaled by 0.18215; GroupNorm eps is 1e-6 throughout;
 the encoder downsamples with an asymmetric (0,1) pad and a stride-2 valid
 conv. Parameter names are the diffusers keys. The mid-block attention is a
 single 512-wide head through `nn.attention`: the streaming kernel K6 on the
-card, the plain version with bounded score memory on the CPU.
+card, the plain version with bounded score memory on the CPU. Its q/k/v
+projections carry biases, as diffusers' do (the JAX package's have none;
+zero biases reproduce it).
 """
 
 from __future__ import annotations
@@ -19,14 +21,15 @@ from gaussctrl_tpu_torch.diffusion.nn import ResnetBlock, Upsample, attention
 
 
 class VAEAttnBlock(nn.Module):
-    """Single-head self-attention over HW tokens (mid block)."""
+    """Single-head self-attention over HW tokens (mid block), with q/k/v
+    biases as in a diffusers VAE."""
 
     def __init__(self, channels: int, norm_num_groups: int):
         super().__init__()
         self.group_norm = nn.GroupNorm(norm_num_groups, channels, eps=1e-6)
-        self.to_q = nn.Linear(channels, channels, bias=False)
-        self.to_k = nn.Linear(channels, channels, bias=False)
-        self.to_v = nn.Linear(channels, channels, bias=False)
+        self.to_q = nn.Linear(channels, channels)
+        self.to_k = nn.Linear(channels, channels)
+        self.to_v = nn.Linear(channels, channels)
         self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
 
     def forward(self, x):

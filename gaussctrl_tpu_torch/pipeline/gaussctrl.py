@@ -49,6 +49,7 @@ from gaussctrl_tpu_torch.diffusion.processors import (CrossViewAttnProcessor,
 from gaussctrl_tpu_torch.diffusion.sample import (SDModels, denoise,
                                                   encode_text, invert,
                                                   vae_decode, vae_encode)
+from gaussctrl_tpu_torch.diffusion.weights import load_sd_models
 from gaussctrl_tpu_torch.splat.rasterize import RasterConfig
 from gaussctrl_tpu_torch.splat.render import render_rgbd
 from gaussctrl_tpu_torch.splat.scene import GaussianScene
@@ -112,8 +113,12 @@ class GaussCtrlPipeline:
     """Orchestrates the render → inversion → cross-view edit of a scene.
 
     `sd_params`: a JAX-layout parameter tree of numpy arrays, carried across
-    with `bridge.load_flax_params`; None draws random weights from
-    `weights_seed`. Runs on the card unless `device="cpu"`."""
+    with `bridge.load_flax_params`. Without it, `config.diffusion_ckpt` (a
+    diffusers pipeline directory) and `config.controlnet_ckpt` are loaded
+    with `weights.load_sd_models`, and the tokenizer is the BPE one when
+    `<diffusion_ckpt>/tokenizer/{vocab.json,merges.txt}` exist; with neither,
+    random weights are drawn from `weights_seed`. Runs on the card unless
+    `device="cpu"`."""
 
     def __init__(self, config: GaussCtrlConfig, scene: GaussianScene,
                  cameras: Cameras, sd_config: Optional[SDConfig] = None,
@@ -127,19 +132,24 @@ class GaussCtrlPipeline:
         self.cameras = cameras.to(self.device)
         self.raster_cfg = raster_cfg
         self.sd_config = sd_config or SDConfig.sd15()
-        if config.diffusion_ckpt or config.controlnet_ckpt:
-            raise NotImplementedError("loading diffusers checkpoints is not "
-                                      "ported yet; pass sd_params or none")
+        if config.controlnet_ckpt and not config.diffusion_ckpt:
+            raise ValueError("controlnet_ckpt is read with diffusion_ckpt; "
+                             "set both or neither")
         self.models = SDModels.create(self.sd_config, dtype=torch.float32,
                                       device=self.device)
         if sd_params is not None:
             load_flax_params(self.models, sd_params)
+        elif config.diffusion_ckpt:
+            load_sd_models(self.models, config.diffusion_ckpt,
+                           config.controlnet_ckpt)
         else:
             self.models.init_params(weights_seed)
+        # float32 weights (fp16 files are widened exactly) rounded once
         for m in self.models.modules():
             m.to(dtype)
         self.sched = DDIMSchedule.sd15()
-        self.tokenizer = load_tokenizer(None, self.sd_config.text)
+        self.tokenizer = load_tokenizer(config.diffusion_ckpt or None,
+                                        self.sd_config.text)
         self.ref_indices = select_ref_views(len(cameras), config.ref_view_num,
                                             config.seed)
         self._ctx_cache: Dict[str, torch.Tensor] = {}

@@ -2,14 +2,15 @@
 
 Counterpart of `gaussctrl_tpu/splat/render.py:render_rgbd`: RGB and depth are
 composited in a single 4-channel rasterization, and depth is alpha-normalised
-with 1000 where nothing was hit.
+with 1000 where nothing was hit. `render_camera` renders one camera of a
+batch.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gaussctrl_tpu_torch.cameras.camera import view_matrix
+from gaussctrl_tpu_torch.cameras.camera import Cameras, view_matrix
 from gaussctrl_tpu_torch.splat.project import project_gaussians
 from gaussctrl_tpu_torch.splat.rasterize import RasterConfig, rasterize
 from gaussctrl_tpu_torch.splat.scene import GaussianScene
@@ -20,9 +21,16 @@ def render_rgbd(scene: GaussianScene, c2w: torch.Tensor, fx, fy, cx, cy,
                 width: int, height: int, background: torch.Tensor,
                 sh_degree: int | None = None,
                 cfg: RasterConfig = RasterConfig(),
-                return_stats: bool = False):
+                return_stats: bool = False,
+                xys_shift: torch.Tensor | None = None):
     """Render one view: dict(rgb [H,W,3], depth [H,W,1], accumulation
-    [H,W,1]) and, with `return_stats`, the rasterizer counters."""
+    [H,W,1], radii [N], the projection's opacity-aware screen radii, 0 for
+    a gaussian it culls) and, with `return_stats`, the rasterizer counters.
+
+    `xys_shift` [N, 2] (zeros) is added to the projected centres: the
+    gradient with respect to it is the exact pixel-space positional
+    gradient (splatfacto's densification statistic), which the blend's
+    backward (kernel K4 on the card) gives in its xy rows."""
     if sh_degree is None:
         sh_degree = scene.sh_degree
     viewmat = view_matrix(c2w)
@@ -38,14 +46,25 @@ def render_rgbd(scene: GaussianScene, c2w: torch.Tensor, fx, fy, cx, cy,
 
     chans = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
     bg4 = torch.cat([background, torch.zeros_like(background[:1])])
-    out = rasterize(proj.xys, proj.depths, proj.radii, proj.conics, chans,
+    xys = proj.xys if xys_shift is None else proj.xys + xys_shift
+    out = rasterize(xys, proj.depths, proj.radii, proj.conics, chans,
                     opac, bg4, height, width, cfg, return_stats=return_stats)
     img, alpha = out[0], out[1]
     rgb = torch.clamp_max(img[..., :3], 1.0)
     depth = torch.where(alpha > 0, img[..., 3] / torch.clamp_min(alpha, 1e-10),
                         torch.full_like(alpha, 1000.0))
     result = {"rgb": rgb, "depth": depth[..., None],
-              "accumulation": alpha[..., None]}
+              "accumulation": alpha[..., None], "radii": proj.radii}
     if return_stats:
         result["stats"] = out[2]
     return result
+
+
+def render_camera(scene: GaussianScene, cameras: Cameras, idx: int,
+                  background: torch.Tensor, sh_degree: int | None = None,
+                  cfg: RasterConfig = RasterConfig()):
+    """Render the `idx`-th camera of a batch (`render_rgbd`'s dict)."""
+    return render_rgbd(scene, cameras.c2w[idx], cameras.fx[idx],
+                       cameras.fy[idx], cameras.cx[idx], cameras.cy[idx],
+                       cameras.width, cameras.height, background, sh_degree,
+                       cfg)

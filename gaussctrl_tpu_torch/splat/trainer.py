@@ -13,7 +13,10 @@ end, each on a random background.
 The backgrounds come from a `torch.Generator` seeded with `seed`, or from
 the caller (`backgrounds` [num_steps, 3]), so that a run can be fed the JAX
 package's `jax.random` draws. The blend's backward runs kernel K4 on the
-card (`splat/rasterize.py`).
+card (`splat/rasterize.py`). Pre-training (`splat/pretrain.py`) also needs
+`zero_adam_rows` (newborn slots), `reset_group_moments` (after an opacity
+reset) and `adopt_params` (Adam's state onto the leaves that capacity
+growth replaced).
 """
 
 from __future__ import annotations
@@ -85,6 +88,49 @@ def make_optimizer(scene: GaussianScene,
     return torch.optim.Adam(
         [{"params": [getattr(scene, g)], "lr": lrs[g], "name": g}
          for g in GROUPS], eps=cfg.adam_eps, foreach=False)
+
+
+@torch.no_grad()
+def zero_adam_rows(optimizer: torch.optim.Adam, rows: torch.Tensor) -> None:
+    """Zero the Adam moments (exp_avg, exp_avg_sq) of the gaussian slots
+    `rows` ([N] bool) in every group, keeping the other rows and each
+    group's step (densification's newborn slots)."""
+    for group in optimizer.param_groups:
+        st = optimizer.state.get(group["params"][0])
+        if st:
+            st["exp_avg"][rows] = 0.0
+            st["exp_avg_sq"][rows] = 0.0
+
+
+@torch.no_grad()
+def reset_group_moments(optimizer: torch.optim.Adam, name: str) -> None:
+    """Zero one group's Adam state, step included, as a fresh optimizer of
+    that group would hold it (after an opacity reset)."""
+    for group in optimizer.param_groups:
+        st = optimizer.state.get(group["params"][0])
+        if group["name"] == name and st:
+            for v in st.values():
+                v.zero_()
+
+
+@torch.no_grad()
+def adopt_params(optimizer: torch.optim.Adam, scene: GaussianScene) -> None:
+    """Point every group at the scene's current leaves after they were
+    replaced by longer ones (capacity growth): each group's moments move to
+    the new leaf, padded with zero rows, and its step is kept, so Adam
+    continues rather than restarting."""
+    for group in optimizer.param_groups:
+        old = group["params"][0]
+        new = getattr(scene, group["name"])
+        if new is old:
+            continue
+        st = optimizer.state.pop(old, None)
+        if st:
+            pad = new.shape[0] - old.shape[0]
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k] = torch.cat([st[k], st[k].new_zeros((pad,) + st[k].shape[1:])])
+            optimizer.state[new] = st
+        group["params"] = [new]
 
 
 def exp_so3(phi: torch.Tensor) -> torch.Tensor:

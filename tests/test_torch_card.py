@@ -355,3 +355,56 @@ def test_blend_bwd_writes_every_row_of_the_tiles_on_card():
     used = int(ends[-1])
     assert bool(torch.isfinite(rows[:used]).all())
     assert bool(torch.isnan(rows[used:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [128, 512])
+def test_k4_xy_rows_and_densify_decisions_on_a_pretraining_scene_on_card(size):
+    """A pre-training-like scene (40,000 kNN-sized grey seeds from
+    `from_points` among the smoke scene's means, at opacity 0.1) against a
+    target view: the gradient with respect to `xys_shift` through K4
+    against the same through K4's plain version (on K1's same forward),
+    within chip_smoke's K4_SCALED_TOL of its largest magnitude, and the
+    densify candidates of one accumulated step agreeing outside
+    ±DECISION_BAND of grad_thresh."""
+    import importlib
+    dev = _card()
+    cs = _chip_smoke()
+    from gaussctrl_tpu_torch.splat import densify as dn
+    from gaussctrl_tpu_torch.splat.render import render_rgbd
+    from gaussctrl_tpu_torch.splat.scene import from_points
+    from gaussctrl_tpu_torch.splat.trainer import splat_loss
+    rast = importlib.import_module("gaussctrl_tpu_torch.splat.rasterize")
+    gt_scene = cs.smoke_scene(200_000, dev)
+    cams = cs.orbit_cameras(2, size, dev)
+    with torch.no_grad():
+        target = render_rgbd(gt_scene, cams.c2w[1], cams.fx[1], cams.fy[1],
+                             cams.cx[1], cams.cy[1], size, size,
+                             torch.zeros(3, device=dev))["rgb"]
+    pts = gt_scene.means[:40_000].cpu().numpy()
+    scene = from_points(pts, np.full_like(pts, 0.5), 3, device=dev)
+    grads, state = [], None
+    for bwd in (sb.blend_bwd, sb.blend_bwd_plain):
+        shift = torch.zeros((scene.num_gaussians, 2), device=dev,
+                            requires_grad=True)
+        saved = rast.blend_bwd
+        rast.blend_bwd = bwd
+        try:
+            out = render_rgbd(scene, cams.c2w[0], cams.fx[0], cams.fy[0],
+                              cams.cx[0], cams.cy[0], size, size,
+                              torch.full((3,), 0.3, device=dev),
+                              xys_shift=shift)
+            splat_loss(out["rgb"], target)[0].backward()
+        finally:
+            rast.blend_bwd = saved
+        grads.append(shift.grad)
+        state = out["radii"]
+    g_k, g_p = grads
+    assert (g_k - g_p).abs().max() <= cs.K4_SCALED_TOL * g_p.abs().max()
+    alive = torch.ones(scene.num_gaussians, dtype=torch.bool, device=dev)
+    fresh = dn.init_state(scene, scene.num_gaussians)[1]
+    stats = [dn.accumulate(fresh, g, state > 0, size, size, state).avg_grad()
+             for g in (g_k, g_p)]
+    rec = cs.densify_agreement(*stats, alive, dn.DensifyConfig().grad_thresh,
+                               cs.DECISION_BAND)
+    assert rec["candidates"] > 0 and rec["disagree_outside"] == 0, rec

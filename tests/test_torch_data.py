@@ -229,3 +229,64 @@ def test_import_splatfacto_ckpt_matches_jax(tmp_path, layout):
                tmp_path / "bad.ckpt")
     with pytest.raises(ValueError, match="missing"):
         tckpt.import_splatfacto_ckpt(tmp_path / "bad.ckpt")
+
+
+def _nerfstudio_splatfacto_ckpt(path, n=23, step=29999):
+    """A checkpoint shaped as nerfstudio's `Trainer.save_checkpoint` writes
+    one for splatfacto: `step`, `pipeline` (the pipeline's state dict, an
+    OrderedDict with `_model.gauss_params.*` and the other modules'
+    tensors), `optimizers` (one Adam `state_dict` per parameter group:
+    `state` keyed by int with `step`/`exp_avg`/`exp_avg_sq`, and
+    `param_groups` with tuples, bools and None), `schedulers` (their
+    state dicts: ints, floats, lists, None) and `scalers` (the GradScaler's
+    state dict of Python numbers)."""
+    from collections import OrderedDict
+    g = torch.Generator().manual_seed(1)
+    shapes = dict(means=(n, 3), scales=(n, 3), quats=(n, 4), opacities=(n, 1),
+                  features_dc=(n, 3), features_rest=(n, 15, 3))
+    params = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    pipeline = OrderedDict()
+    for k, v in params.items():
+        pipeline["_model.gauss_params." + k] = v
+    pipeline["_model.camera_optimizer.pose_adjustment"] = torch.zeros(40, 6)
+    pipeline["datamanager.train_camera_optimizer.pose_adjustment"] = \
+        torch.zeros(40, 6)
+    optimizers, schedulers = {}, {}
+    for name, p in params.items():
+        optimizers[name] = {
+            "state": {0: {"step": torch.tensor(float(step)),
+                          "exp_avg": torch.zeros_like(p),
+                          "exp_avg_sq": torch.zeros_like(p)}},
+            "param_groups": [{"lr": 1.6e-6, "betas": (0.9, 0.999),
+                              "eps": 1e-15, "weight_decay": 0,
+                              "amsgrad": False, "maximize": False,
+                              "foreach": None, "capturable": False,
+                              "differentiable": False, "fused": None,
+                              "params": [0]}]}
+        if name == "means":
+            schedulers[name] = {"base_lrs": [1.6e-4], "last_epoch": step,
+                                "verbose": False, "_step_count": step + 1,
+                                "_get_lr_called_within_step": False,
+                                "_last_lr": [1.6e-6], "lr_lambdas": [None]}
+    scalers = {"scale": 65536.0, "growth_factor": 2.0, "backoff_factor": 0.5,
+               "growth_interval": 2000, "_growth_tracker": 0}
+    torch.save({"step": step, "pipeline": pipeline, "optimizers": optimizers,
+                "schedulers": schedulers, "scalers": scalers}, path)
+    return params
+
+
+def test_import_nerfstudio_shaped_splatfacto_ckpt(tmp_path):
+    """A nerfstudio-shaped splatfacto checkpoint loads under the port's
+    `weights_only=True` with no added safe globals, to the scene the JAX
+    importer (`weights_only=False`) reads from it."""
+    path = tmp_path / "step-000029999.ckpt"
+    params = _nerfstudio_splatfacto_ckpt(path)
+    torch.load(path, map_location="cpu", weights_only=True)   # no allow-list
+    ref, ref_step = jckpt.import_splatfacto_ckpt(path)
+    got, step = tckpt.import_splatfacto_ckpt(path)
+    assert step == ref_step == 29999
+    for k in FIELDS:
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(getattr(ref, k)), err_msg=k)
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      params[k].numpy(), err_msg=k)

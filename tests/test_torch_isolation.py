@@ -117,3 +117,53 @@ def test_plain_versions_are_used_on_cpu_without_counting():
     assert torch.equal(fa.attention_stream(q, q, q, 2),
                        fa.attention_stream_plain(q, q, q, 2))
     assert launch_counts == before
+
+
+def test_modules_and_chip_smoke_import_with_jax_and_safetensors_blocked(tmp_path):
+    """With `jax`, `flax`, `gaussctrl_tpu` and `safetensors` blocked in
+    `sys.modules`, every module of the port and chip_smoke.py import, and
+    the port's safetensors reader and writer work."""
+    mods = _all_modules()
+    for m in ("gaussctrl_tpu_torch.diffusion.weights",
+              "gaussctrl_tpu_torch.splat.densify",
+              "gaussctrl_tpu_torch.splat.pretrain",
+              "gaussctrl_tpu_torch.core.writer",
+              "gaussctrl_tpu_torch.cli.splat_train"):
+        assert m in mods, m
+    path = tmp_path / "t.safetensors"
+    code = ("import importlib, sys\n"
+            "for b in ('jax', 'flax', 'gaussctrl_tpu', 'safetensors'):\n"
+            "    sys.modules[b] = None\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "import torch\n"
+            "from gaussctrl_tpu_torch.diffusion import weights as w\n"
+            "t = {'a': torch.arange(6.).reshape(2, 3).half()}\n"
+            f"w.save_safetensors({str(path)!r}, t)\n"
+            f"got = w.read_safetensors({str(path)!r})\n"
+            "assert torch.equal(got['a'], t['a'].float())\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_pretrain_and_splat_train_default_to_the_card(tmp_path):
+    """`pretrain` and `cli.splat_train` without a device ask for the card,
+    and raise without one rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from gaussctrl_tpu_torch.cameras.camera import make_cameras
+    from gaussctrl_tpu_torch.cli import splat_train
+    from gaussctrl_tpu_torch.splat.pretrain import PretrainConfig, pretrain
+    cams = make_cameras(np.eye(4, dtype=np.float32)[None, :3], 8, 8, 4, 4, 8, 8)
+    pts = np.zeros((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretrain(cams, np.zeros((1, 8, 8, 3), np.float32), pts, pts,
+                 PretrainConfig(num_steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        splat_train.main(["--data", os.path.join(REPO, "data", "example_scene"),
+                          "--output-dir", str(tmp_path),
+                          "--trainer.num_steps", "1"])
