@@ -62,6 +62,22 @@ Phases, each printing one JSON line with its wall time:
                   on its inputs, the two steps' outputs held to twice the
                   gap bf16 rounding alone sets there, and both routes timed
                   per token level;
+  7b. masked_edit  text-prompted object masks at full width: random SAM
+                  ViT-H, GroundingDINO Swin-B and CLIP ViT-L/14 (with the
+                  SD-1.5 text tower) written in the reference layouts
+                  (facebook .pth, the official nested .pth with a vocab.txt,
+                  a transformers CLIPModel directory) and read back by the
+                  port's loaders bit for bit; GaussCtrlPipeline.run() with
+                  langsam_obj and a GroundedSAMMasker over GroundingDINO on a
+                  fresh smoke scene (2 DDIM steps, 10 re-optimisation steps,
+                  exact launch counts of K1-K6); the masks exactly 0/1, the
+                  edit equal to the unedited render bit for bit wherever a
+                  mask is 0, a view without a box all zero; the CLIP
+                  proposer's route and the CLIP metrics on the same views;
+                  the tiny segmentation stack on the card against the CPU,
+                  and SAM and GroundingDINO at full width in float32 against
+                  float64 on one view; the proposer's, SAM's and the masked
+                  run's seconds, detections and coverage per view;
   8. pretrain     splat.pretrain.pretrain at full width: 401 steps from
                   100,000 grey seeds against 16 orbit views (512x512) of
                   the smoke scene, across 128/256/512 px, three refines, a
@@ -1097,6 +1113,43 @@ def reopt_split(reps: int = 5):
 # phase 6: the main path
 # ---------------------------------------------------------------------------
 
+def expected_launches(pipe, layers, V: int, ddim_steps: int, reopt_steps: int):
+    """The exact launches of every kernel in one `pipe.run()` over `V`
+    views with `ddim_steps` DDIM steps and `reopt_steps` re-optimisation
+    steps, from the layer counts; and the number of edit chunks."""
+    from gaussctrl_tpu_torch.ops import launch_counts
+    cfg = pipe.config
+    n_self = len(layers["unet"]) + len(layers["controlnet"])
+    R = cfg.ref_view_num
+    # the reference's draw may repeat a view (inclusive randint), so the
+    # chunks are counted from the views that are not references
+    others = [i for i in range(V) if i not in pipe.ref_indices]
+    n_chunks = -(-len(others) // cfg.chunk_size)
+    # UNet + ControlNet forwards of the inversion and of the edit
+    inv_fwd = ddim_steps * (1 if cfg.invert_batch <= 0
+                            else -(-V // cfg.invert_batch))
+    edit_fwd = ddim_steps * n_chunks
+    expected = dict.fromkeys(launch_counts, 0)
+    expected["splat_blend_fwd"] = V + reopt_steps  # renders, re-opt steps
+    expected["splat_blend_bwd"] = reopt_steps
+    # every self-attention of the inversion
+    expected["flash_attention_t"] = inv_fwd * n_self
+    for t, c in LEVELS:
+        n_unet, n_cn = LAYERS_PER_LEVEL[t]
+        # one text cross-attention per transformer block of every forward
+        expected[std_kernel(c // HEADS, TEXT_TOKENS)] += \
+            (inv_fwd + edit_fwd) * (n_unet + n_cn)
+        if str(t) in fused_levels():             # K3 (4096/1024/256)
+            expected["cross_view_attention"] += edit_fwd * (n_unet + n_cn)
+        else:   # composed (64): the UNet's self branch (the ControlNet has
+            # c = 0) and one call per reference in both networks
+            expected["flash_attention_t"] += edit_fwd * n_unet
+            expected[std_kernel(c // HEADS, t)] += edit_fwd * R * (n_unet + n_cn)
+    # the VAE mid-block: one per encode batch, one for the decode
+    expected[std_kernel(VAE_WIDTH, VAE_TOKENS)] += -(-V // cfg.render_batch) + 1
+    return expected, n_chunks
+
+
 def main_path(args, card, ckpt_dirs, written):
     """`GaussCtrlPipeline.run()` on the SD-1.5 weights read from the
     diffusers directories `ckpt_dirs` (phase 6a) through
@@ -1135,35 +1188,9 @@ def main_path(args, card, ckpt_dirs, written):
         bpe_tokenizer=isinstance(pipe.tokenizer, CLIPTokenizer))
 
     layers = attention_layer_counts(pipe.models)
-    n_self = len(layers["unet"]) + len(layers["controlnet"])
-    V, R = args.views, cfg.ref_view_num
-    # the reference's draw may repeat a view (inclusive randint), so the
-    # chunks are counted from the views that are not references
-    others = [i for i in range(V) if i not in pipe.ref_indices]
-    n_chunks = -(-len(others) // cfg.chunk_size)
+    V = args.views
     steps = args.reopt_steps
-    # UNet + ControlNet forwards of the inversion and of the edit
-    inv_fwd = args.steps * (1 if cfg.invert_batch <= 0
-                            else -(-V // cfg.invert_batch))
-    edit_fwd = args.steps * n_chunks
-    expected = dict.fromkeys(launch_counts, 0)
-    expected["splat_blend_fwd"] = V + steps      # renders, re-opt steps
-    expected["splat_blend_bwd"] = steps
-    # every self-attention of the inversion
-    expected["flash_attention_t"] = inv_fwd * n_self
-    for t, c in LEVELS:
-        n_unet, n_cn = LAYERS_PER_LEVEL[t]
-        # one text cross-attention per transformer block of every forward
-        expected[std_kernel(c // HEADS, TEXT_TOKENS)] += \
-            (inv_fwd + edit_fwd) * (n_unet + n_cn)
-        if str(t) in fused_levels():             # K3 (4096/1024/256)
-            expected["cross_view_attention"] += edit_fwd * (n_unet + n_cn)
-        else:   # composed (64): the UNet's self branch (the ControlNet has
-            # c = 0) and one call per reference in both networks
-            expected["flash_attention_t"] += edit_fwd * n_unet
-            expected[std_kernel(c // HEADS, t)] += edit_fwd * R * (n_unet + n_cn)
-    # the VAE mid-block: one per encode batch, one for the decode
-    expected[std_kernel(VAE_WIDTH, VAE_TOKENS)] += -(-V // cfg.render_batch) + 1
+    expected, n_chunks = expected_launches(pipe, layers, V, args.steps, steps)
 
     # each stage of run() is timed to its end on the card
     ends = {}
@@ -1344,6 +1371,458 @@ def check_composed(pipe, steps: int, reps: int):
             <= COMPOSED_FLOOR_RATIO * step["floor"]["rel_rms_err"]):
         raise AssertionError(f"the composed route's edit step is further from "
                              f"the fused one than bf16 rounding sets: {step}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: text-prompted object masks on the edit (SAM ViT-H, GroundingDINO
+# Swin-B, CLIP ViT-L/14) read from checkpoints in the reference layouts
+# ---------------------------------------------------------------------------
+
+MASK_OBJECT = "bear"
+# the masked edit's own depth: the edit itself is timed by the main path
+MASK_STEPS, MASK_REOPT_STEPS = 2, 10
+# the tiny segmentation stack, card against CPU, float32 on both (TF32 off):
+# within 1e-4 of each output's largest |value|
+SEG_TINY_TOL = 1e-4
+# full width, one view: float32 on the card against float64 on the card,
+# held by relative RMS and by the largest error over the largest |value|
+SEG_F64_REL_RMS_TOL, SEG_F64_SCALED_TOL = 1e-3, 1e-2
+# a BERT vocabulary for the prompt (the word table keeps its 30522 rows)
+DINO_VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", ".", "?", "a", "photo",
+              "of", "bear", "polar", "statue"]
+
+
+def seg_configs():
+    """(SAM, GroundingDINO, CLIP vision, CLIP text) configs of the phase:
+    the reference's SAM ViT-H, GroundingDINO Swin-B and CLIP ViT-L/14 with
+    the SD-1.5 text tower."""
+    from gaussctrl_tpu_torch.diffusion.clip import CLIPVisionConfig
+    from gaussctrl_tpu_torch.diffusion.config import CLIPTextConfig
+    from gaussctrl_tpu_torch.seg.dino import DinoConfig
+    from gaussctrl_tpu_torch.seg.sam import SAMConfig
+    return (SAMConfig.vit_h(), DinoConfig.swin_b(), CLIPVisionConfig.vit_l14(),
+            CLIPTextConfig.sd15())
+
+
+def _err(got, ref) -> dict:
+    """Largest error over the largest |value|, and relative RMS."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    if got.shape != ref.shape:
+        raise AssertionError(f"shapes {tuple(got.shape)} != {tuple(ref.shape)}")
+    d = got - ref
+    return dict(scaled_err=(d.abs().max() / ref.abs().max().clamp_min(1e-30)).item(),
+                rel_rms_err=(d.norm() / ref.norm().clamp_min(1e-30)).item())
+
+
+def write_seg_checkpoints(root: str, cfgs) -> dict:
+    """Random SAM, GroundingDINO and CLIP weights written in the layouts the
+    reference's checkpoints have: a facebook SAM `.pth` (with the
+    mask-prompt weights the box path leaves unused), the official
+    GroundingDINO `.pth` (nested under "model", "module." prefixes, the
+    shared box head's copies, Swin's relative_position_index buffers,
+    BERT's pooler and position_ids) with a vocab.txt, and a transformers
+    CLIPModel directory (safetensors from the port's writer, logit_scale
+    and I64 position_ids). Floats are stored in fp16 (the released files
+    are fp32) to halve the bytes the phase moves; the loaders widen them.
+    Returns the paths and the written tensors."""
+    import torch
+    from gaussctrl_tpu_torch.diffusion.weights import save_safetensors
+    from gaussctrl_tpu_torch.seg.dino import GroundingDINO
+    from gaussctrl_tpu_torch.seg.grounding import random_clip
+    from gaussctrl_tpu_torch.seg.sam import SAM
+    sam_cfg, dino_cfg, vcfg, tcfg = cfgs
+    gen = torch.Generator().manual_seed(12)
+    out = dict(sam=os.path.join(root, "sam_vit_h.pth"),
+               dino=os.path.join(root, "groundingdino_swinb_cogcoor.pth"),
+               vocab=os.path.join(root, "vocab.txt"),
+               clip=os.path.join(root, "clip-vit-large-patch14"))
+
+    def half(sd):
+        return {k: v.cpu().half() if v.is_floating_point() else v.cpu()
+                for k, v in sd.items()}
+
+    sam = half(SAM.create(sam_cfg, 11, DEVICE).state_dict())
+    c = sam_cfg.out_chans
+    extra = {"not_a_point_embed.weight": (1, c),
+             "mask_downscaling.0.weight": (c // 16, 1, 2, 2),
+             "mask_downscaling.0.bias": (c // 16,),
+             "mask_downscaling.1.weight": (c // 16,),
+             "mask_downscaling.1.bias": (c // 16,),
+             "mask_downscaling.3.weight": (c // 4, c // 16, 2, 2),
+             "mask_downscaling.3.bias": (c // 4,),
+             "mask_downscaling.4.weight": (c // 4,),
+             "mask_downscaling.4.bias": (c // 4,),
+             "mask_downscaling.6.weight": (c, c // 4, 1, 1),
+             "mask_downscaling.6.bias": (c,)}
+    for k, shape in extra.items():
+        sam["prompt_encoder." + k] = torch.randn(shape, generator=gen).half()
+    torch.save(sam, out["sam"])
+
+    dino = half(GroundingDINO.create(dino_cfg, 13, DEVICE).state_dict())
+    head = {k: v for k, v in dino.items() if k.startswith("bbox_embed.0.")}
+    for i in range(dino_cfg.dec_layers):
+        for k, v in head.items():
+            dino[k.replace("bbox_embed.0.", f"bbox_embed.{i}.")] = v
+            dino["transformer.decoder." + k.replace("bbox_embed.0.",
+                                                    f"bbox_embed.{i}.")] = v
+    w = dino_cfg.window
+    for s_, depth in enumerate(dino_cfg.swin_depths):
+        for b in range(depth):
+            dino[f"backbone.0.layers.{s_}.blocks.{b}.attn.relative_position_index"] = \
+                torch.zeros((w * w, w * w), dtype=torch.int64)
+    dino["bert.pooler.dense.weight"] = (torch.randn(
+        (dino_cfg.bert_hidden,) * 2, generator=gen) * 0.02).half()
+    dino["bert.pooler.dense.bias"] = torch.zeros(dino_cfg.bert_hidden).half()
+    dino["bert.embeddings.position_ids"] = torch.arange(512)[None]
+    torch.save({"model": {"module." + k: v for k, v in dino.items()}}, out["dino"])
+    with open(out["vocab"], "w") as f:
+        f.write("\n".join(DINO_VOCAB) + "\n")
+
+    clip = half(random_clip(vcfg, tcfg, 14, DEVICE).state_dict())
+    clip["logit_scale"] = torch.tensor(2.6592)
+    clip["text_model.embeddings.position_ids"] = torch.arange(
+        tcfg.max_position_embeddings)[None]
+    clip["vision_model.embeddings.position_ids"] = torch.arange(
+        1 + vcfg.grid ** 2)[None]
+    os.makedirs(out["clip"])
+    save_safetensors(os.path.join(out["clip"], "model.safetensors"), clip)
+    out["tensors"] = dict(sam=sam, dino=dino, clip=clip)
+    return out
+
+
+def _read_back_exact(module, written: dict, rename=lambda k: k) -> bool:
+    """Every tensor of `module` is the file's, bit for bit (after float32)."""
+    import torch
+    return all(torch.equal(v.cpu(), written[rename(k)].float())
+               for k, v in module.state_dict().items())
+
+
+def check_seg_tiny(tokenizer_for) -> dict:
+    """The tiny segmentation stack on the card against the CPU, one set of
+    weights on both: SAM's embeddings, mask logits and IoU, the CLIP
+    heatmap, GroundingDINO's logits and boxes, and the CLIPScorer's image
+    and text embeddings."""
+    import copy
+    import numpy as np
+    import torch
+    from gaussctrl_tpu_torch.diffusion.clip import CLIPVisionConfig
+    from gaussctrl_tpu_torch.diffusion.config import CLIPTextConfig
+    from gaussctrl_tpu_torch.metrics import CLIPScorer
+    from gaussctrl_tpu_torch.seg.dino import DinoConfig, GroundingDINO, phrase_masks
+    from gaussctrl_tpu_torch.seg.grounding import ClipBoxProposer, random_clip
+    from gaussctrl_tpu_torch.seg.sam import SAM, SAMConfig
+    gen = torch.Generator().manual_seed(21)
+    errs = {}
+    sam = SAM.create(SAMConfig.tiny(), 22)
+    sam_card = copy.deepcopy(sam).to(DEVICE)
+    img = torch.rand(3, 64, 64, 3, generator=gen)
+    boxes = torch.tensor([[4., 4., 40., 40.], [0., 0., 60., 60.],
+                          [30., 20., 62., 50.]])
+    emb = sam.encode(img)
+    errs["sam_embedding"] = _err(sam_card.encode(img.to(DEVICE)), emb)
+    m, iou = sam.predict_boxes(emb, boxes)
+    cm, ciou = sam_card.predict_boxes(emb.to(DEVICE), boxes.to(DEVICE))
+    errs["sam_mask_logits"], errs["sam_iou"] = _err(cm, m), _err(ciou, iou)
+
+    tcfg = CLIPTextConfig.tiny()
+    clip = random_clip(CLIPVisionConfig.tiny(), tcfg, 23)
+    clip_card = copy.deepcopy(clip).to(DEVICE)
+    tok = tokenizer_for(tcfg)
+    imgs = torch.rand(4, 48, 40, 3, generator=gen)
+    errs["clip_heatmap"] = _err(
+        ClipBoxProposer(clip_card, tok).heatmap(imgs.to(DEVICE), MASK_OBJECT),
+        ClipBoxProposer(clip, tok).heatmap(imgs, MASK_OBJECT))
+    sc, sg = CLIPScorer(clip, tok), CLIPScorer(clip_card, tok)
+    errs["scorer_images"] = _err(sg.embed_images(imgs), sc.embed_images(imgs))
+    prompts = ["a photo of a polar bear", "a photo of a bear statue"]
+    errs["scorer_texts"] = _err(sg.embed_texts(prompts), sc.embed_texts(prompts))
+
+    cfg = DinoConfig.tiny()
+    dino = GroundingDINO.create(cfg, 24)
+    dino_card = copy.deepcopy(dino).to(DEVICE)
+    ids = np.zeros((2, cfg.max_text_len), np.int64)
+    ids[:, :5] = [1, 10, 11, 2, 1]
+    attn, pos = phrase_masks(ids, (1, 2))
+    attn |= np.eye(cfg.max_text_len, dtype=bool)
+    tmask = np.zeros_like(ids, bool)
+    tmask[:, :5] = True
+    text = [torch.as_tensor(x) for x in (ids, pos, attn, tmask)]
+    im = torch.randn(2, cfg.img_size, cfg.img_size, 3, generator=gen)
+    logits, bx = dino(im, *text)
+    cl, cb = dino_card(im.to(DEVICE), *[t.to(DEVICE) for t in text])
+    errs["dino_logits"] = _err(cl[:, :, :5], logits[:, :, :5])
+    errs["dino_boxes"] = _err(cb, bx)
+    return errs
+
+
+def check_seg_f64(sam, dino, tok, view) -> dict:
+    """At full width on one view [1,H,W,3]: SAM encode + decode and the
+    GroundingDINO forward in float32 on the card against the same modules
+    in float64 on the card. GroundingDINO's float64 decoder starts from the
+    float32 run's selected locations (a near tie at the top-900 boundary
+    would otherwise swap whole queries)."""
+    import copy
+    import torch
+    from gaussctrl_tpu_torch.pipeline.gaussctrl import resize_bilinear
+    from gaussctrl_tpu_torch.seg.dino import (IMAGENET_MEAN, IMAGENET_STD,
+                                              DinoBoxProposer)
+    errs = {}
+    s = sam.cfg.img_size
+    x = resize_bilinear(view.float(), s, s)
+    box = torch.tensor([[0.2 * s, 0.2 * s, 0.8 * s, 0.8 * s]], device=DEVICE)
+    sam64 = copy.deepcopy(sam).double()
+    emb, emb64 = sam.encode(x), sam64.encode(x.double())
+    m, iou = sam.predict_boxes(emb, box)
+    m64, iou64 = sam64.predict_boxes(emb64, box.double())
+    errs["sam_embedding"], errs["sam_mask_logits"] = _err(emb, emb64), _err(m, m64)
+    errs["sam_iou"] = _err(iou, iou64)
+    del sam64, emb64, m64
+    torch.cuda.empty_cache()
+
+    prop = DinoBoxProposer(dino, tok)
+    text = prop._prep_text(MASK_OBJECT)
+    n = int(text[3].sum())
+    s = dino.cfg.img_size
+    im = resize_bilinear(view.float(), s, s)
+    im = (im - im.new_tensor(IMAGENET_MEAN)) / im.new_tensor(IMAGENET_STD)
+    ids, pos, attn, tmask = (torch.as_tensor(t, device=DEVICE) for t in text)
+    ids, pos = ids.long(), pos.long()
+    dino64 = copy.deepcopy(dino).double()
+    with torch.no_grad():
+        img, txt = dino.encode(im, ids, pos, attn, tmask)
+        top = dino.select(img, txt, tmask)
+        logits, bx = dino.decode(img, txt, tmask, top)
+        img64, txt64 = dino64.encode(im.double(), ids, pos, attn, tmask)
+        logits64, bx64 = dino64.decode(img64, txt64, tmask, top)
+    errs["dino_image_memory"] = _err(img, img64)
+    errs["dino_logits"] = _err(logits[:, :, :n], logits64[:, :, :n])
+    errs["dino_boxes"] = _err(bx, bx64)
+    del dino64
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_masked_edit(pipe, card: str) -> dict:
+    """The masked edit at full width: the segmentation checkpoints written
+    in the reference layouts and read back through the port's loaders;
+    `GaussCtrlPipeline.run()` (MASK_STEPS DDIM steps, MASK_REOPT_STEPS
+    re-optimisation steps) with `langsam_obj` and a GroundedSAMMasker over
+    GroundingDINO on a fresh smoke scene, with exact kernel launch counts;
+    the CLIP proposer's route and the CLIP metrics on the same views; the
+    tiny stack card against CPU and the full width float32 against
+    float64."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from gaussctrl_tpu_torch.diffusion.clip import load_tokenizer
+    from gaussctrl_tpu_torch.diffusion.weights import load_clip_model
+    from gaussctrl_tpu_torch.metrics import (CLIPScorer,
+                                             clip_directional_similarity,
+                                             clip_similarity)
+    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
+    from gaussctrl_tpu_torch.seg.dino import DinoBoxProposer
+    from gaussctrl_tpu_torch.seg.dino_weights import load_dino
+    from gaussctrl_tpu_torch.seg.grounding import (ClipBoxProposer,
+                                                   GroundedSAMMasker)
+    from gaussctrl_tpu_torch.seg.weights import load_sam
+    from gaussctrl_tpu_torch.splat.render import render_rgbd
+    t_phase = time.perf_counter()
+    cfgs = seg_configs()
+    V = len(pipe.cameras)
+    checks, notes = {}, []
+
+    # 1. checkpoints written, and read back through the port's loaders
+    root = tempfile.mkdtemp(prefix="gaussctrl_seg_")
+    try:
+        t0 = time.perf_counter()
+        files = write_seg_checkpoints(root, cfgs)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(root) for f in fs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sam = load_sam(files["sam"], device=DEVICE)
+        dino, tok = load_dino(files["dino"], files["vocab"], device=DEVICE)
+        clip = load_clip_model(files["clip"], device=DEVICE)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        written = files.pop("tensors")
+        checks["configs_from_files"] = (sam.cfg, dino.cfg, clip.vision_cfg,
+                                        clip.text_cfg) == tuple(cfgs)
+        checks["read_back_bit_exact"] = (
+            _read_back_exact(sam, written["sam"])
+            and _read_back_exact(dino, written["dino"])
+            and _read_back_exact(clip, written["clip"]))
+        del written
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tcfg = cfgs[3]
+    clip_tok = load_tokenizer(None, tcfg)
+
+    # 2. the DINO threshold: random weights may score no query above the
+    # default 0.3 on any view; then it is lowered to the views' median best
+    # score, so that the masked path runs
+    pipe.scene = smoke_scene(GAUSSIANS, DEVICE)
+    cams = pipe.cameras
+    bg = torch.zeros(3, device=DEVICE)
+    with torch.no_grad():
+        views = torch.stack([render_rgbd(
+            pipe.scene, cams.c2w[i], cams.fx[i], cams.fy[i], cams.cx[i],
+            cams.cy[i], cams.width, cams.height, bg, pipe.scene.sh_degree,
+            pipe.raster_cfg)["rgb"] for i in range(V)])
+    prop = DinoBoxProposer(dino, tok)
+    text = prop._prep_text(MASK_OBJECT)
+    best = torch.cat([prop.forward(views[lo:lo + prop.batch], text)[0]
+                      .amax((1, 2)) for lo in range(0, V, prop.batch)]).cpu()
+    default = prop.box_threshold
+    if best.max() < default:
+        prop.box_threshold = float(best.median())
+        notes.append(f"box_threshold lowered from {default} to "
+                     f"{prop.box_threshold!r}: the random GroundingDINO's best "
+                     f"scores per view span [{best.min().item()!r}, "
+                     f"{best.max().item()!r}], all under the default")
+
+    # 3. the masked run, its masker's parts timed on the card
+    parts = dict(proposer=0.0, sam_encode=0.0, sam_decode=0.0)
+    found = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[name] += time.perf_counter() - t
+            return out
+        return call
+
+    def proposer(images, text):
+        boxes = prop(images, text)
+        found["boxes"] = boxes
+        return boxes
+
+    masker = GroundedSAMMasker(sam, timed("proposer", proposer))
+    sam.encode = timed("sam_encode", sam.encode)
+    sam.predict_boxes = timed("sam_decode", sam.predict_boxes)
+    pipe.masker = masker
+    pipe.config = dataclasses.replace(
+        pipe.config, langsam_obj=MASK_OBJECT, num_inference_steps=MASK_STEPS,
+        render_rate=MASK_REOPT_STEPS)
+    layers = attention_layer_counts(pipe.models)
+    expected, _ = expected_launches(pipe, layers, V, MASK_STEPS,
+                                    MASK_REOPT_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = pipe.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del sam.encode, sam.predict_boxes
+
+    masks = pipe.masks
+    has_box = torch.as_tensor(found["boxes"][:, 0] >= 0, device=DEVICE)
+    per_view_max = masks.flatten(1).amax(1)
+    off = (masks == 0).expand_as(pipe.edited)
+    checks["masks_binary"] = bool(((masks == 0) | (masks == 1)).all())
+    checks["unmasked_pixels_unedited_bit_exact"] = bool(
+        torch.equal(pipe.edited[off], pipe.unedited[off]))
+    checks["no_box_views_all_zero"] = bool((per_view_max[~has_box] == 0).all())
+    checks["some_view_masked"] = bool((per_view_max > 0).any())
+    # the no-box branch, whatever the scores: the first batch's boxes again
+    # with view 0's replaced by "no match" give the run's masks there, with
+    # view 0 all zero
+    n = masker.batch
+    boxes = found["boxes"][:n].copy()
+    boxes[0] = -1.0
+    again = GroundedSAMMasker(sam, lambda images, text: boxes)(
+        pipe.unedited[:n], MASK_OBJECT)
+    checks["no_box_view_all_zero"] = bool(again[0].max() == 0) and \
+        bool(torch.equal(again[1:], masks[1:n]))
+    checks["launch_counts"] = counts == expected
+    checks["finite"] = bool(torch.isfinite(pipe.edited).all()) and bool(
+        torch.isfinite(metrics["loss_history"]).all())
+
+    # 4. the CLIP proposer's route on the same views
+    clip_prop = ClipBoxProposer(clip, clip_tok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sims = clip_prop.heatmap(pipe.unedited, MASK_OBJECT)
+    torch.cuda.synchronize()
+    heat_s = time.perf_counter() - t0
+    clip_boxes = clip_prop(pipe.unedited, MASK_OBJECT)
+    if not (clip_boxes[:, 0] >= 0).any():
+        clip_prop.min_score = -1.0
+        notes.append(f"CLIP proposer floor lowered from 0 to -1: the random "
+                     f"towers' cosines span [{sims.min().item():.6f}, "
+                     f"{sims.max().item():.6f}] on these views")
+        clip_boxes = clip_prop(pipe.unedited, MASK_OBJECT)
+    t0 = time.perf_counter()
+    clip_masks = GroundedSAMMasker(sam, clip_prop)(pipe.unedited, MASK_OBJECT)
+    torch.cuda.synchronize()
+    clip_masker_s = time.perf_counter() - t0
+    clip_has = torch.as_tensor(clip_boxes[:, 0] >= 0, device=DEVICE)
+    checks["clip_masks_binary"] = bool(((clip_masks == 0) | (clip_masks == 1)).all())
+    checks["clip_no_box_views_all_zero"] = bool(
+        (clip_masks.flatten(1).amax(1)[~clip_has] == 0).all())
+
+    # 5. the CLIP metrics of the edit (what cli.eval computes)
+    scorer = CLIPScorer(clip, clip_tok)
+    t0 = time.perf_counter()
+    ev = dict(clip_similarity=clip_similarity(scorer, pipe.edited,
+                                              pipe.config.edit_prompt),
+              clip_directional_similarity=clip_directional_similarity(
+                  scorer, pipe.edited, pipe.unedited, pipe.config.edit_prompt,
+                  pipe.config.reverse_prompt))
+    torch.cuda.synchronize()
+    ev["seconds"] = time.perf_counter() - t0
+    checks["eval_finite"] = all(math.isfinite(v) for v in ev.values())
+
+    # 6. the tiny stack card against CPU, and full width against float64
+    t0 = time.perf_counter()
+    tiny = check_seg_tiny(lambda tc: load_tokenizer(None, tc))
+    tiny_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f64 = check_seg_f64(sam, dino, tok, pipe.unedited[:1])
+    f64_s = time.perf_counter() - t0
+    checks["tiny_card_vs_cpu"] = all(e["scaled_err"] <= SEG_TINY_TOL
+                                     for e in tiny.values())
+    checks["full_width_f32_vs_f64"] = all(
+        e["scaled_err"] <= SEG_F64_SCALED_TOL
+        and e["rel_rms_err"] <= SEG_F64_REL_RMS_TOL for e in f64.values())
+
+    coverage = masks.float().mean((1, 2, 3)).tolist()
+    rec = dict(phase="masked_edit", card=card, object=MASK_OBJECT, views=V,
+               ddim_steps=MASK_STEPS, reopt_steps=MASK_REOPT_STEPS,
+               sam=dataclasses.asdict(cfgs[0]), dino=dataclasses.asdict(cfgs[1]),
+               clip_vision=dataclasses.asdict(cfgs[2]),
+               checkpoint_bytes=nbytes, write_s=write_s, read_s=read_s,
+               dino_best_score_per_view=best.tolist(),
+               dino_box_threshold=prop.box_threshold, notes=notes,
+               proposer_s=parts["proposer"], sam_encode_s=parts["sam_encode"],
+               sam_decode_s=parts["sam_decode"], masked_run_s=run_s,
+               peak_mem_gb=peak_gb,
+               detections=found["boxes"].tolist(),
+               views_with_box=int(has_box.sum()), mask_coverage=coverage,
+               launches=counts, expected_launches=expected,
+               clip_route=dict(heatmap_s=heat_s, masker_s=clip_masker_s,
+                               cosine_range=[sims.min().item(), sims.max().item()],
+                               detections=clip_boxes.tolist(),
+                               mask_coverage=clip_masks.float().mean(
+                                   (1, 2, 3)).tolist()),
+               eval=ev, tiny_card_vs_cpu=tiny, tiny_tol=SEG_TINY_TOL,
+               tiny_s=tiny_s, full_width_f32_vs_f64=f64,
+               f64_tol=dict(scaled=SEG_F64_SCALED_TOL,
+                            rel_rms=SEG_F64_REL_RMS_TOL),
+               f64_s=f64_s, checks=checks,
+               seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"masked_edit failed {bad}")
     return rec
 
 
@@ -1916,6 +2395,9 @@ def main() -> int:
 
     # 7. the composed cross-view route against the fused one
     composed = check_composed(pipe, args.steps, REPS // 4)
+
+    # 7b. the masked edit: SAM ViT-H, GroundingDINO Swin-B, CLIP ViT-L/14
+    masked = check_masked_edit(pipe, card)
     del pipe
     torch.cuda.empty_cache()
 
@@ -1984,11 +2466,13 @@ def main() -> int:
     # kernels on the TMA + wgmma core of csrc/flash_core.cuh, K1 and K4 on
     # cp.async-staged records with one replay in K4
     launches = mp["launches"]
+    masked_launches = masked["launches"]
     kernels = [
         dict(name="splat_blend_fwd", route="cuda", redesigned=True,
              source="gaussctrl_tpu_torch/csrc/splat_blend_fwd.cu",
              replaces="gaussctrl_tpu/ops/splat_blend.py:218",
              launches=launches["splat_blend_fwd"],
+             masked_launches=masked_launches["splat_blend_fwd"],
              max_abs_err=k1["max_abs_err"], ms=k1["kernel_ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None),
@@ -1996,6 +2480,7 @@ def main() -> int:
              source="gaussctrl_tpu_torch/csrc/splat_blend_bwd.cu",
              replaces="gaussctrl_tpu/ops/splat_blend.py:261",
              launches=launches["splat_blend_bwd"],
+             masked_launches=masked_launches["splat_blend_bwd"],
              max_abs_err=k4["max_abs_err"], ms=k4["kernel_ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=None),
@@ -2003,6 +2488,7 @@ def main() -> int:
              source="gaussctrl_tpu_torch/csrc/flash_hopper.cu",
              replaces="gaussctrl_tpu/ops/flash_attention.py:106",
              launches=launches["flash_attention_t"],
+             masked_launches=masked_launches["flash_attention_t"],
              max_abs_err=max(r["max_abs_err"] for r in k2),
              ms=step_sum(k2, "kernel_ms"), plain_ms=step_sum(k2, "plain_ms"),
              bound_ms=step_sum(k2, "bound_ms"), bound_by=bound_by(k2, layers_of),
@@ -2011,6 +2497,7 @@ def main() -> int:
              source="gaussctrl_tpu_torch/csrc/cross_view_hopper.cu",
              replaces="gaussctrl_tpu/ops/flash_attention.py:194",
              launches=launches["cross_view_attention"],
+             masked_launches=masked_launches["cross_view_attention"],
              max_abs_err=max(r["max_abs_err"] for r in k3),
              ms=step_sum(k3, "kernel_ms", True),
              plain_ms=step_sum(k3, "plain_ms", True),
@@ -2020,6 +2507,7 @@ def main() -> int:
              source="gaussctrl_tpu_torch/csrc/attention_full_hopper.cu",
              replaces="gaussctrl_tpu/ops/flash_attention.py:81",
              launches=launches["attention_full"],
+             masked_launches=masked_launches["attention_full"],
              max_abs_err=max(r["max_abs_err"] for r in k5),
              ms=k5_step["kernel_ms"], plain_ms=k5_step["plain_ms"],
              bound_ms=k5_step["bound_ms"],
@@ -2029,6 +2517,7 @@ def main() -> int:
              source="gaussctrl_tpu_torch/csrc/flash_hopper.cu",
              replaces="gaussctrl_tpu/ops/flash_attention.py:40",
              launches=launches["attention_stream"],
+             masked_launches=masked_launches["attention_stream"],
              max_abs_err=max(r["max_abs_err"] for r in k6),
              ms=vae["kernel_ms"], plain_ms=vae["plain_ms"],
              bound_ms=vae["bound_ms"], bound_by=vae["bound_by"],
@@ -2043,6 +2532,7 @@ def main() -> int:
                            k5=k5, k6=k6, sass=sass, train=train,
                            reopt_split=split, weights=weights,
                            main_path=mp, composed=composed,
+                           masked_edit=masked,
                            pretrain=pretrain, splat_train=splat_train,
                            kernels=kernels, total_s=total_s),
                       f, indent=1)

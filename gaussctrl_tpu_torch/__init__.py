@@ -2,9 +2,11 @@
 
 The PyTorch/CUDA counterpart of `gaussctrl_tpu` (JAX/Pallas), laid out module
 for module like it: `splat/` (scene, projection, tile rasterizer), `cameras/`,
-`diffusion/` (SD-1.5 UNet, depth ControlNet, VAE, CLIP text, DDIM), `ops/`
-(the hand-written CUDA kernels and their plain PyTorch versions) and
-`pipeline/` (render → DDIM inversion → cross-view edit).
+`diffusion/` (SD-1.5 UNet, depth ControlNet, VAE, CLIP text and vision,
+DDIM), `ops/` (the hand-written CUDA kernels and their plain PyTorch
+versions), `seg/` (text-prompted object masks: SAM, GroundingDINO, the CLIP
+box proposer), `metrics/` (CLIP metrics of an edit) and `pipeline/`
+(render → DDIM inversion → cross-view edit).
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; there is no silent fallback. This package imports neither

@@ -14,7 +14,8 @@ The flags are the JAX CLI's: --data, --output-dir, --experiment-name,
 (PretrainConfig, with --trainer.densify.* and --trainer.train.*) and
 --raster.*, plus --device, which defaults to the card (`--device cpu` runs
 on the CPU). The JAX CLI's --trainer.fullres_blend has no counterpart: the
-port blends with K1/K4 at every resolution.
+port blends with K1/K4 at every resolution; --raster.blend_impl and
+--raster.bwd_write are accepted and ignored, with one logged line.
 
     python -m gaussctrl_tpu_torch.cli.splat_train --data data/example_scene \\
         --trainer.num_steps 3000
@@ -37,7 +38,8 @@ from gaussctrl_tpu_torch.core.ckpt import (checkpoint_step, compress_scene_npz,
 from gaussctrl_tpu_torch.core.writer import MetricsWriter
 from gaussctrl_tpu_torch.data.datamanager import DataManager, DataManagerConfig
 from gaussctrl_tpu_torch.splat.pretrain import PretrainConfig, pretrain
-from gaussctrl_tpu_torch.splat.rasterize import RasterConfig
+from gaussctrl_tpu_torch.splat.rasterize import (RasterConfig,
+                                                 ignored_flags_line)
 from gaussctrl_tpu_torch.splat.render import render_camera
 
 
@@ -94,6 +96,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = apply_overrides(PretrainConfig(), args, "trainer")
     raster_cfg = apply_overrides(RasterConfig(), args, "raster")
+    note = ignored_flags_line(args)
+    if note:
+        print(f"[splat-train] {note}", flush=True)
     init_scene, start_step = None, 0
     if args.resume_checkpoint:
         init_scene = load_scene_npz(args.resume_checkpoint)

@@ -10,12 +10,18 @@ dataparser discovers, the edited images, `timings.json` and renders of the
 re-optimised scene.
 
 The flags are those of the JAX package: --pipeline.*,
---pipeline.datamanager.*, --optimizers.*, --raster.*, --tiny-sd, plus
---device, which defaults to the card; pass `--device cpu` to run on the
-CPU. --pipeline.diffusion_ckpt and --pipeline.controlnet_ckpt name local
+--pipeline.datamanager.*, --optimizers.*, --raster.*, --tiny-sd,
+--sam-ckpt, --clip-ckpt, --dino-ckpt, --dino-vocab, plus --device, which
+defaults to the card; pass `--device cpu` to run on the CPU.
+--pipeline.diffusion_ckpt and --pipeline.controlnet_ckpt name local
 diffusers directories to load the networks from (random weights without
-them). Text-prompted masks (--pipeline.langsam_obj) are not ported yet.
-Images are written with PIL, imported when they are written.
+them). --pipeline.langsam_obj names the object to edit: its masks come
+from SAM (--sam-ckpt, a facebook .pth) prompted with boxes from
+GroundingDINO (--dino-ckpt with its --dino-vocab) or from the CLIP proposer
+(--clip-ckpt, a transformers CLIPModel directory); without checkpoints the
+segmentation networks are tiny random ones. --raster.blend_impl and
+--raster.bwd_write are accepted and ignored, with one logged line. Images
+are written with PIL, imported when they are written.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from gaussctrl_tpu_torch.core.ckpt import (checkpoint_step,
                                            load_scene_npz, save_checkpoint)
 from gaussctrl_tpu_torch.data.datamanager import DataManager, DataManagerConfig
 from gaussctrl_tpu_torch.pipeline import GaussCtrlConfig, GaussCtrlPipeline
-from gaussctrl_tpu_torch.splat.rasterize import RasterConfig
+from gaussctrl_tpu_torch.splat.rasterize import (RasterConfig,
+                                                 ignored_flags_line)
 from gaussctrl_tpu_torch.splat.render import render_rgbd
 from gaussctrl_tpu_torch.splat.trainer import TrainConfig
 
@@ -53,6 +60,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-num-iterations", type=int, default=1000)
     p.add_argument("--tiny-sd", action="store_true",
                    help="use the tiny SD config (tests/smoke; random weights)")
+    p.add_argument("--sam-ckpt", default="",
+                   help="facebook SAM .pth for langsam_obj masking")
+    p.add_argument("--clip-ckpt", default="",
+                   help="local HF CLIPModel dir for the text->box proposer")
+    p.add_argument("--dino-ckpt", default="",
+                   help="groundingdino_swinb_cogcoor.pth for the text->box "
+                        "stage (preferred over --clip-ckpt when given)")
+    p.add_argument("--dino-vocab", default="",
+                   help="BERT vocab.txt for the GroundingDINO tokenizer")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' on request)")
     add_dataclass_flags(p, GaussCtrlConfig, "pipeline")
@@ -77,10 +93,6 @@ def main(argv=None):
     tcfg = apply_overrides(TrainConfig(), args, "optimizers")
     rcfg = apply_overrides(RasterConfig(), args, "raster")
     dcfg.dataparser.data = args.data
-    if pcfg.langsam_obj:
-        raise NotImplementedError(
-            "--pipeline.langsam_obj: text-prompted masks (the segmentation "
-            "stack) are not ported yet; edit without an object mask")
 
     exp = args.experiment_name or Path(args.data).name
     out_dir = (Path(args.output_dir) / exp / "gaussctrl"
@@ -89,6 +101,10 @@ def main(argv=None):
 
     def log(msg):
         print(f"[gaussctrl] {msg}", flush=True)
+
+    note = ignored_flags_line(args)
+    if note:
+        log(note)
 
     log(f"loading data from {args.data}")
     dm = DataManager(dcfg)
@@ -106,8 +122,19 @@ def main(argv=None):
     if args.tiny_sd:
         from gaussctrl_tpu_torch.diffusion.config import SDConfig
         sd_config = SDConfig.tiny()
+    masker = None
+    if pcfg.langsam_obj:
+        from gaussctrl_tpu_torch.seg.grounding import build_langsam_equivalent
+        masker = build_langsam_equivalent(args.sam_ckpt or None,
+                                          args.clip_ckpt or None,
+                                          dino_ckpt=args.dino_ckpt or None,
+                                          dino_vocab=args.dino_vocab or None,
+                                          device=args.device)
+        log(f"text->mask stack ready for object '{pcfg.langsam_obj}'")
+
     pipe = GaussCtrlPipeline(pcfg, scene, dm.cameras, sd_config=sd_config,
-                             raster_cfg=rcfg, device=args.device)
+                             raster_cfg=rcfg, device=args.device,
+                             masker=masker)
     dev = pipe.device
     (out_dir / "dataparser_transforms.json").write_text(json.dumps({
         "transform": np.asarray(dm.parsed.dataparser_transform).tolist(),

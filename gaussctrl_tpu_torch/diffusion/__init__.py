@@ -1,4 +1,5 @@
-"""Latent diffusion stack: SD-1.5 UNet + depth ControlNet + VAE + CLIP text.
+"""Latent diffusion stack: SD-1.5 UNet + depth ControlNet + VAE + CLIP text
+(and the CLIP vision tower the masks and metrics use).
 
 Counterpart of `gaussctrl_tpu/diffusion/`: torch.nn modules named after the
 diffusers checkpoint keys, DDIM forward/inverse steps, the attention

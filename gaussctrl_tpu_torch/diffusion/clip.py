@@ -1,21 +1,26 @@
-"""CLIP text encoder (torch.nn) and the offline tokenizers.
+"""CLIP text and vision towers (torch.nn) and the offline tokenizers.
 
-Counterpart of the text half of `gaussctrl_tpu/diffusion/clip.py`: causal
-self-attention, quick-GELU, learned position embeddings and a final layer
-norm. Parameter names are the transformers keys (`text_model.encoder.
-layers.0.self_attn.q_proj`, …). Prompts are augmented with the reference's
-suffix and paired with its negative prompt; `HashTokenizer` gives CRC32 word
-ids when no vocabulary files are present.
+Counterpart of `gaussctrl_tpu/diffusion/clip.py`: causal self-attention,
+quick-GELU, learned position embeddings and a final layer norm in the text
+tower; the ViT image tower with a class token, a pre-LN and a post-LN over
+every token; and `CLIPModel`, both towers with their projections into the
+joint space, which the CLIP box proposer (`seg/grounding.py`) and the edit
+metrics (`metrics/`) use. Parameter names are the transformers keys
+(`text_model.encoder.layers.0.self_attn.q_proj`, `vision_model.embeddings.
+patch_embedding`, `visual_projection`, …). Prompts are augmented with the
+reference's suffix and paired with its negative prompt; `HashTokenizer`
+gives CRC32 word ids when no vocabulary files are present.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gzip
 import json
 import os
 import re
 import zlib
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -69,14 +74,17 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    """One pre-LN transformer layer of either tower (`cfg` is a
+    CLIPTextConfig or a CLIPVisionConfig)."""
+
+    def __init__(self, cfg: Union[CLIPTextConfig, "CLIPVisionConfig"]):
         super().__init__()
         self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads)
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask=None):
         x = x + self.self_attn(self.layer_norm1(x), mask)
         return x + self.mlp(self.layer_norm2(x))
 
@@ -90,7 +98,7 @@ class _Embeddings(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg):
         super().__init__()
         self.layers = nn.ModuleList([CLIPEncoderLayer(cfg)
                                      for _ in range(cfg.num_layers)])
@@ -114,6 +122,14 @@ class CLIPTextTransformer(nn.Module):
             x = layer(x, causal)
         return self.final_layer_norm(x)
 
+    def embed(self, input_ids: torch.Tensor, projection: torch.Tensor
+              ) -> torch.Tensor:
+        """Pooled text embedding in the joint space: the hidden state at the
+        EOS position (the highest token id) times `projection` [hidden, D]."""
+        h = self(input_ids)
+        eos = torch.argmax(input_ids, dim=-1)
+        return h[torch.arange(h.shape[0], device=h.device), eos] @ projection
+
 
 class CLIPTextModel(nn.Module):
     """input_ids [B, T] → last hidden state [B, T, hidden] (final LN applied)."""
@@ -125,6 +141,99 @@ class CLIPTextModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.text_model(input_ids)
+
+    def embed(self, input_ids: torch.Tensor, projection: torch.Tensor
+              ) -> torch.Tensor:
+        return self.text_model.embed(input_ids, projection)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    projection_dim: int = 768
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @classmethod
+    def vit_l14(cls) -> "CLIPVisionConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "CLIPVisionConfig":
+        return cls(image_size=32, patch_size=8, hidden_size=32, num_layers=2,
+                   num_heads=2, intermediate_size=64, projection_dim=16)
+
+
+# CLIP image normalisation (OpenAI statistics, [0,1] pixels)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.class_embedding = nn.Parameter(torch.zeros(cfg.hidden_size))
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size,
+                                         cfg.patch_size, bias=False)
+        self.position_embedding = nn.Embedding(1 + cfg.grid ** 2,
+                                               cfg.hidden_size)
+
+
+class CLIPVisionTransformer(nn.Module):
+    """images [B, S, S, 3] CLIP-normalised -> tokens [B, 1+P, hidden], the
+    post-LN applied to every token (token 0 is the class token)."""
+
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = _VisionEmbeddings(cfg)
+        self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.encoder = _Encoder(cfg)
+        self.post_layernorm = nn.LayerNorm(cfg.hidden_size,
+                                           eps=cfg.layer_norm_eps)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        e = self.embeddings
+        x = e.patch_embedding(images.permute(0, 3, 1, 2))
+        x = x.flatten(2).transpose(1, 2)                       # [B, P, hidden]
+        cls = e.class_embedding.expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], 1) + e.position_embedding.weight[None]
+        x = self.pre_layrnorm(x)
+        for layer in self.encoder.layers:
+            x = layer(x)
+        return self.post_layernorm(x)
+
+
+class CLIPModel(nn.Module):
+    """Both CLIP towers and their joint-space projections (the transformers
+    `CLIPModel` keys, less `logit_scale`)."""
+
+    def __init__(self, vision: CLIPVisionConfig, text: CLIPTextConfig):
+        super().__init__()
+        self.vision_cfg, self.text_cfg = vision, text
+        self.vision_model = CLIPVisionTransformer(vision)
+        self.text_model = CLIPTextTransformer(text)
+        self.visual_projection = nn.Linear(vision.hidden_size,
+                                           vision.projection_dim, bias=False)
+        self.text_projection = nn.Linear(text.hidden_size,
+                                         vision.projection_dim, bias=False)
+
+    def image_tokens(self, images: torch.Tensor) -> torch.Tensor:
+        """CLIP-normalised [B,S,S,3] -> every token in the joint space
+        [B, 1+P, D] (post-LN, then the visual projection)."""
+        return self.vision_model(images) @ self.visual_projection.weight.T
+
+    def text_embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """[B, T] ids -> pooled text embeddings in the joint space [B, D]."""
+        return self.text_model.embed(input_ids, self.text_projection.weight.T)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,11 @@ renames:
 Any other missing or unexpected key raises, naming it. The VAE's mid-block
 q/k/v biases load into the port's VAE (the JAX package drops them).
 
+`load_clip_model` reads a transformers `CLIPModel` directory
+(`model.safetensors` or `pytorch_model.bin`: both towers and their
+projections) into `clip.CLIPModel`, strictly, dropping only `logit_scale`
+and the `position_ids` buffers.
+
 Safetensors files are read by this module itself (an 8-byte little-endian
 header length, a JSON header, then raw little-endian bytes), so no
 `safetensors` package is needed. F32, F16 and BF16 are read as float32;
@@ -200,3 +205,25 @@ def load_sd_models(models, sd_dir: str, controlnet_dir: str) -> None:
     load_module(models.text, "text",
                 load_state_dict(os.path.join(sd_dir, "text_encoder"), "model"))
     load_module(models.controlnet, "controlnet", load_state_dict(controlnet_dir))
+
+
+def _clip_key(key: str):
+    if key == "logit_scale" or key.endswith("embeddings.position_ids"):
+        return None
+    return key
+
+
+def load_clip_model(clip_dir: str, vision_cfg=None, text_cfg=None,
+                    device="cpu"):
+    """A transformers CLIPModel directory -> `clip.CLIPModel` in float32 on
+    `device`; the towers are CLIP ViT-L/14 and the SD-1.5 text encoder's
+    unless configs are given (the JAX `load_clip_model` always means those)."""
+    from gaussctrl_tpu_torch.diffusion.clip import CLIPModel, CLIPVisionConfig
+    from gaussctrl_tpu_torch.diffusion.config import CLIPTextConfig
+
+    model = CLIPModel(vision_cfg or CLIPVisionConfig.vit_l14(),
+                      text_cfg or CLIPTextConfig.sd15())
+    sd = {k: v for k, v in load_state_dict(clip_dir, "model").items()
+          if _clip_key(k) is not None}
+    model.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True)
+    return model.to(device).eval()

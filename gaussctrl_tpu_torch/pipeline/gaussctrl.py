@@ -12,8 +12,11 @@ Counterpart of `gaussctrl_tpu/pipeline/gaussctrl.py`:
                   (kernel K3), either in reference-style chunks with the refs
                   prepended (`chunk_size` > 0) or all views at once
                   (`chunk_size` = 0); then VAE-decodes and composites under
-                  the masks (all ones: text-prompted segmentation is not
-                  part of this port yet).
+                  the masks: the edit where a mask is 1, the unedited render
+                  where it is 0. With `langsam_obj` and a `masker`
+                  (`seg.grounding.GroundedSAMMasker`) the masks are the
+                  object's, made from the unedited renders at the end of
+                  render_reverse; otherwise all ones.
   reoptimize      `render_rate` single-view L1 + SSIM steps of the scene
                   against the edits (`splat/trainer.py`; kernels K1 and K4
                   on the card).
@@ -117,16 +120,18 @@ class GaussCtrlPipeline:
     diffusers pipeline directory) and `config.controlnet_ckpt` are loaded
     with `weights.load_sd_models`, and the tokenizer is the BPE one when
     `<diffusion_ckpt>/tokenizer/{vocab.json,merges.txt}` exist; with neither,
-    random weights are drawn from `weights_seed`. Runs on the card unless
-    `device="cpu"`."""
+    random weights are drawn from `weights_seed`. `masker`: a
+    `seg.MaskProvider`, called with `config.langsam_obj`. Runs on the card
+    unless `device="cpu"`."""
 
     def __init__(self, config: GaussCtrlConfig, scene: GaussianScene,
                  cameras: Cameras, sd_config: Optional[SDConfig] = None,
                  sd_params: Optional[Dict[str, Any]] = None,
                  dtype=torch.bfloat16, raster_cfg: RasterConfig = RasterConfig(),
-                 device=None, weights_seed: int = 0):
+                 device=None, weights_seed: int = 0, masker=None):
         self.device = resolve_device(device)
         self.config = config
+        self.masker = masker
         self.scene = GaussianScene(**{f.name: getattr(scene, f.name).to(self.device)
                                       for f in dataclasses.fields(scene)})
         self.cameras = cameras.to(self.device)
@@ -259,8 +264,17 @@ class GaussCtrlPipeline:
             if log_fn:
                 log_fn(f"inverted views {lo}..{hi - 1}")
         self.z_T = torch.cat(zs)
-        self.masks = torch.ones(self.unedited.shape[:3] + (1,),
-                                dtype=self.unedited.dtype, device=self.device)
+        if cfg.langsam_obj and self.masker is not None:
+            self.masks = self.masker(self.unedited, cfg.langsam_obj).to(
+                self.device, self.unedited.dtype)
+            if log_fn:
+                log_fn(f"masked '{cfg.langsam_obj}' in "
+                       f"{int((self.masks.flatten(1).amax(1) > 0).sum())} "
+                       f"of {V} views")
+        else:
+            self.masks = torch.ones(self.unedited.shape[:3] + (1,),
+                                    dtype=self.unedited.dtype,
+                                    device=self.device)
         return self
 
     # -- stage 2: cross-view edit -------------------------------------------

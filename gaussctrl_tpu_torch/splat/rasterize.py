@@ -43,6 +43,34 @@ class RasterConfig:
     tile_capacity: int = 768    # instances per segment of the plain blend
     isect_divisor: int = 2      # sorted buffer = candidate slots / divisor
     tile_chunk: int = 128       # tiles per step of the plain blend
+    # the JAX package's choice of blend ("auto", "xla", "pallas") and of its
+    # XLA backward's write ("loop", "scatter"): accepted so that its flags
+    # parse, and ignored, since K1/K4 are the one blend and one backward
+    blend_impl: str = "auto"
+    bwd_write: str = "loop"
+
+    def __post_init__(self):
+        if self.blend_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(f"blend_impl {self.blend_impl!r}: one of auto, "
+                             "xla, pallas")
+        if self.bwd_write not in ("loop", "scatter"):
+            raise ValueError(f"bwd_write {self.bwd_write!r}: one of loop, "
+                             "scatter")
+
+
+IGNORED_RASTER_FLAGS = ("blend_impl", "bwd_write")
+
+
+def ignored_flags_line(args) -> str:
+    """The one line that names the --raster.* flags of `args` that the port
+    accepts and ignores ('' when none was given)."""
+    given = [f"--raster.{n} {getattr(args, 'raster.' + n)}"
+             for n in IGNORED_RASTER_FLAGS
+             if getattr(args, "raster." + n, None) is not None]
+    if not given:
+        return ""
+    return (f"ignoring {', '.join(given)}: the port blends with kernels K1/K4 "
+            "whatever the choice")
 
 
 class Binned(NamedTuple):

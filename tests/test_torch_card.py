@@ -1,7 +1,9 @@
 """Card-only tests of the splat-blend kernels K1 (`blend`) and K4
 (`blend_bwd`) and the attention kernels K2 (`flash_attention_t`), K3
 (`cross_view_attention`), K5 (`attention_full`) and K6 (`attention_stream`)
-against their plain versions.
+against their plain versions; and of the segmentation stack (SAM, the CLIP
+heatmap, GroundingDINO, the deformable sampling) on the card against the
+CPU.
 
 This file imports no JAX, so it runs on a machine with the card and
 PyTorch alone: `python -m pytest -m cuda tests/test_torch_card.py`. Without
@@ -408,3 +410,95 @@ def test_k4_xy_rows_and_densify_decisions_on_a_pretraining_scene_on_card(size):
     rec = cs.densify_agreement(*stats, alive, dn.DensifyConfig().grad_thresh,
                                cs.DECISION_BAND)
     assert rec["candidates"] > 0 and rec["disagree_outside"] == 0, rec
+
+
+# ---------------------------------------------------------------------------
+# the segmentation stack (plain PyTorch, float32 with TF32 off): the card
+# against the CPU at tiny configs, one set of random weights on both
+# ---------------------------------------------------------------------------
+
+SEG_REL_TOL = 1e-4
+
+
+def _seg_close(got, ref):
+    """float32 on both sides: within 1e-4 of the largest |value|."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= \
+        SEG_REL_TOL * max(1.0, ref.abs().max().item())
+
+
+def _both(module):
+    import copy
+    return module, copy.deepcopy(module).to("cuda")
+
+
+@pytest.mark.cuda
+def test_sam_card_matches_cpu():
+    """SAM encode, mask logits and IoU of three box prompts."""
+    _card()
+    from gaussctrl_tpu_torch.seg.sam import SAM, SAMConfig
+    cpu, card = _both(SAM.create(SAMConfig.tiny(), seed=1))
+    img = torch.rand(3, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    boxes = torch.tensor([[4., 4., 40., 40.], [0., 0., 60., 60.],
+                          [30., 20., 62., 50.]])
+    emb = cpu.encode(img)
+    _seg_close(card.encode(img.cuda()), emb)
+    m, iou = cpu.predict_boxes(emb, boxes)
+    cm, ciou = card.predict_boxes(emb.cuda(), boxes.cuda())
+    _seg_close(cm, m)
+    _seg_close(ciou, iou)
+
+
+@pytest.mark.cuda
+def test_clip_heatmap_card_matches_cpu():
+    """The CLIP proposer's patch/text heatmap and its boxes."""
+    _card()
+    from gaussctrl_tpu_torch.diffusion.clip import CLIPVisionConfig, HashTokenizer
+    from gaussctrl_tpu_torch.diffusion.config import CLIPTextConfig
+    from gaussctrl_tpu_torch.seg.grounding import ClipBoxProposer, random_clip
+    tcfg = CLIPTextConfig.tiny()
+    cpu, card = _both(random_clip(CLIPVisionConfig.tiny(), tcfg, 2))
+    tok = HashTokenizer(tcfg.vocab_size, tcfg.max_position_embeddings)
+    pc, pg = ClipBoxProposer(cpu, tok, min_score=-1.0), \
+        ClipBoxProposer(card, tok, min_score=-1.0)
+    imgs = torch.rand(4, 48, 40, 3, generator=torch.Generator().manual_seed(1))
+    _seg_close(pg.heatmap(imgs.cuda(), "a bear"), pc.heatmap(imgs, "a bear"))
+
+
+@pytest.mark.cuda
+def test_dino_card_matches_cpu():
+    """GroundingDINO's logits over the real tokens and its boxes."""
+    _card()
+    from gaussctrl_tpu_torch.seg.dino import DinoConfig, GroundingDINO, phrase_masks
+    cfg = DinoConfig.tiny()
+    cpu, card = _both(GroundingDINO.create(cfg, seed=3))
+    ids = np.zeros((2, cfg.max_text_len), np.int64)
+    ids[:, :5] = [1, 10, 11, 2, 1]
+    attn, pos = phrase_masks(ids, (1, 2))
+    attn = attn | np.eye(cfg.max_text_len, dtype=bool)
+    mask = np.zeros_like(ids, bool)
+    mask[:, :5] = True
+    im = torch.randn(2, cfg.img_size, cfg.img_size, 3,
+                     generator=torch.Generator().manual_seed(2))
+    args = [torch.as_tensor(x) for x in (ids, pos, attn, mask)]
+    logits, boxes = cpu(im, *args)
+    cl, cb = card(im.cuda(), *[a.cuda() for a in args])
+    _seg_close(cl[:, :, :5], logits[:, :, :5])
+    _seg_close(cb, boxes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", [(0.1, 0.9), (-0.4, 1.4)])
+def test_deform_sample_card_matches_cpu(spread):
+    """Deformable sampling over two levels, points inside and outside."""
+    _card()
+    from gaussctrl_tpu_torch.seg.dino import deform_sample
+    g = torch.Generator().manual_seed(4)
+    val = torch.randn(2, 24 + 6, 2, 5, generator=g)
+    locs = torch.rand(2, 7, 2, 2, 3, 2, generator=g) * (spread[1] - spread[0]) \
+        + spread[0]
+    w = torch.rand(2, 7, 2, 2, 3, generator=g)
+    shapes = [(4, 6), (2, 3)]
+    _seg_close(deform_sample(val.cuda(), shapes, locs.cuda(), w.cuda()),
+               deform_sample(val, shapes, locs, w))

@@ -1,12 +1,19 @@
 """`python -m gaussctrl_tpu_torch.cli.train --device cpu --tiny-sd` end to end
-on a synthetic scene, its resume path, and its re-optimised checkpoint
-against `gaussctrl_tpu.cli.train`'s.
+on a synthetic scene, its resume path, its object masks and its
+re-optimised checkpoint against `gaussctrl_tpu.cli.train`'s; the option
+sets of the edit and pre-training CLIs against the JAX CLIs'; and
+`cli.eval` against `gaussctrl_tpu.cli.eval`.
 
 The scene is the one of tests/test_cli.py: four ring views of random 64×64
 images and a random 128-gaussian scene at SH degree 1, saved as npz by the
 JAX package. For the comparison both CLIs run their pipeline in float32
 with one numpy-drawn tiny parameter tree and a black background, so that
-the same edit drives the same re-optimisation.
+the same edit drives the same re-optimisation. Two more runs of both CLIs
+edit the object 'bear' under masks from one carried tiny segmentation
+stack (each package's `build_langsam_equivalent` patched to return it),
+one with the CLIP proposer, one with GroundingDINO. The stacks cannot be shared
+through the flags at tiny size (a SAM file means ViT-H/L/B by its width, a
+GroundingDINO file Swin-B, a CLIP directory ViT-L/14).
 """
 
 import json
@@ -28,6 +35,8 @@ from gaussctrl_tpu_torch.core.ckpt import load_scene_npz
 from gaussctrl_tpu_torch.pipeline.gaussctrl import GaussCtrlPipeline
 
 from test_torch_diffusion import random_flax_params
+from test_torch_dino import carried_dino, write_vocab
+from test_torch_seg import carried_clip, carried_sam
 
 torch.set_num_threads(2)
 
@@ -77,27 +86,64 @@ def scene_dir(tmp_path_factory):
     return d
 
 
-@pytest.fixture(scope="module")
-def runs(scene_dir, tmp_path_factory):
-    """Both CLIs on the scene, float32, with one tiny parameter tree."""
+def carried_maskers(route, tmp_dir):
+    """(JAX masker, port masker) on one carried tiny stack: SAM with the
+    CLIP proposer (its floor lowered so that every view gets a box: the
+    random towers' cosines are all below 0 on these views) or with
+    GroundingDINO (threshold 0)."""
+    from gaussctrl_tpu.seg import dino as jdino
+    from gaussctrl_tpu.seg import grounding as jground
+    from gaussctrl_tpu_torch.seg import dino as tdino
+    from gaussctrl_tpu_torch.seg import grounding as tground
+
+    jsam, tsam, _ = carried_sam()
+    if route == "clip":
+        jprop, tprop, _ = carried_clip()
+        jprop.min_score = tprop.min_score = -1.0
+    else:
+        jd, td = carried_dino()
+        vocab = write_vocab(tmp_dir / "vocab.txt")
+        jprop = jdino.DinoBoxProposer(jd.model, jd.params,
+                                      jdino.WordPieceTokenizer(vocab), 0.0)
+        tprop = tdino.DinoBoxProposer(td, tdino.WordPieceTokenizer(vocab), 0.0)
+    return (jground.GroundedSAMMasker(jsam, jprop),
+            tground.GroundedSAMMasker(tsam, tprop))
+
+
+def run_both(scene_dir, out, route=None):
+    """Both CLIs on the scene, float32, with one tiny parameter tree; with a
+    `route`, also `--pipeline.langsam_obj bear` and one carried
+    segmentation stack."""
     params = random_flax_params(JSDModels.create(JSDConfig.tiny()), seed=3)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
-    out = tmp_path_factory.mktemp("cli_out")
     mp = pytest.MonkeyPatch()
     mp.setenv("GAUSSCTRL_NO_CACHE", "1")
     mp.setattr(jtrain, "GaussCtrlPipeline", lambda *a, **kw: JPipeline(
         *a, sd_params=jparams, dtype=jnp.float32, **kw))
     mp.setattr(ttrain, "GaussCtrlPipeline", lambda *a, **kw: GaussCtrlPipeline(
         *a, sd_params=params, dtype=torch.float32, **kw))
+    common = ["--data", str(scene_dir),
+              "--load-checkpoint", str(scene_dir / "scene.npz"), *ARGS]
+    if route:
+        jmask, tmask = carried_maskers(route, out)
+        mp.setattr("gaussctrl_tpu.seg.grounding.build_langsam_equivalent",
+                   lambda *a, **kw: jmask)
+        mp.setattr("gaussctrl_tpu_torch.seg.grounding.build_langsam_equivalent",
+                   lambda *a, **kw: tmask)
+        common += ["--pipeline.langsam_obj", "bear"]
     try:
-        common = ["--data", str(scene_dir),
-                  "--load-checkpoint", str(scene_dir / "scene.npz"), *ARGS]
         jdir = jtrain.main([*common, "--output-dir", str(out / "jax")])
         tdir = ttrain.main([*common, "--output-dir", str(out / "port"),
                             "--device", "cpu"])
     finally:
         mp.undo()
     return jdir, tdir
+
+
+@pytest.fixture(scope="module")
+def runs(scene_dir, tmp_path_factory):
+    """Both CLIs on the scene, float32, with one tiny parameter tree."""
+    return run_both(scene_dir, tmp_path_factory.mktemp("cli_out"))
 
 
 def test_cli_artifact_layout(runs):
@@ -205,10 +251,159 @@ def test_cli_resume_through_load_artifacts(runs, scene_dir, tmp_path):
     assert len(list((out / "ckpts").glob("step-*.npz"))) == 1
 
 
-def test_cli_rejects_text_masks(scene_dir, tmp_path):
-    """Text-prompted masks are not ported: the flag raises, and says so."""
-    with pytest.raises(NotImplementedError, match="langsam_obj"):
-        ttrain.main(["--data", str(scene_dir), "--load-checkpoint",
-                     str(scene_dir / "scene.npz"), "--output-dir",
-                     str(tmp_path), "--device", "cpu", "--tiny-sd",
-                     "--pipeline.langsam_obj", "bear"])
+@pytest.fixture(scope="module", params=["clip", "dino"])
+def masked_runs(request, scene_dir, tmp_path_factory):
+    return run_both(scene_dir, tmp_path_factory.mktemp(f"cli_{request.param}"),
+                    request.param)
+
+
+def test_cli_text_masks_match_jax(masked_runs):
+    """`--pipeline.langsam_obj bear` writes binary masks in mask_npy/ equal
+    to the JAX CLI's, on the CLIP route and on the GroundingDINO route, and
+    the object is found in some views and not everywhere; the edited
+    images agree within one level."""
+    from PIL import Image
+    jdir, tdir = masked_runs
+    masks = []
+    for f in sorted((jdir / "mask_npy").glob("*.npy")):
+        got = np.load(tdir / "mask_npy" / f.name)
+        assert set(np.unique(got)) <= {0.0, 1.0}, f.name
+        np.testing.assert_array_equal(got, np.load(f), err_msg=f.name)
+        masks.append(got)
+    assert len(masks) == 4 and 0.0 < np.mean(masks) < 1.0
+    for f in sorted((jdir / "edited").glob("*.png")):
+        a = np.asarray(Image.open(f), np.int16)
+        b = np.asarray(Image.open(tdir / "edited" / f.name), np.int16)
+        assert np.abs(a - b).max() <= 1, f.name
+
+
+_ONLY_JAX = {"train": set(), "splat_train": {"--trainer.fullres_blend"}}
+_ONLY_PORT = {"train": {"--device"}, "splat_train": {"--device"}}
+
+
+@pytest.mark.parametrize("cli", ["train", "splat_train"])
+def test_cli_option_sets_match_jax(cli):
+    """The port's CLI takes the JAX CLI's options, apart from an explicit
+    list: the JAX pre-training CLI's --trainer.fullres_blend (the port
+    blends with K1/K4 at every resolution) and the port's --device."""
+    import argparse
+    import importlib
+
+    class Built(Exception):
+        pass
+
+    def parser(mod):
+        """The parser `mod.main` builds (the JAX pre-training CLI builds it
+        inside main), caught at its parse_args."""
+        m = importlib.import_module(mod)
+        if hasattr(m, "build_parser"):
+            return m.build_parser()
+
+        def stop(self, *a, **kw):
+            raise Built(self)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("GAUSSCTRL_NO_CACHE", "1")
+            mp.setattr(argparse.ArgumentParser, "parse_args", stop)
+            with pytest.raises(Built) as built:
+                m.main([])
+        return built.value.args[0]
+
+    def options(mod):
+        p = parser(mod)
+        return {o for a in p._actions for o in a.option_strings} - {"-h", "--help"}
+
+    jopts = options(f"gaussctrl_tpu.cli.{cli}")
+    topts = options(f"gaussctrl_tpu_torch.cli.{cli}")
+    assert jopts - topts == _ONLY_JAX[cli]
+    assert topts - jopts == _ONLY_PORT[cli]
+    assert {"--raster.blend_impl", "--raster.bwd_write"} <= topts
+
+
+def test_raster_choices_accepted_and_ignored():
+    """--raster.blend_impl and --raster.bwd_write parse with the JAX
+    choices and defaults, name themselves in one line, and an unknown
+    choice raises."""
+    from gaussctrl_tpu.splat.rasterize import RasterConfig as JRaster
+    from gaussctrl_tpu_torch.cli.flags import apply_overrides
+    from gaussctrl_tpu_torch.splat.rasterize import (RasterConfig,
+                                                     ignored_flags_line)
+
+    assert (RasterConfig().blend_impl, RasterConfig().bwd_write) == \
+        (JRaster().blend_impl, JRaster().bwd_write)
+    p = ttrain.build_parser()
+    base = ["--data", "d", "--load-checkpoint", "c"]
+    args = p.parse_args(base + ["--raster.blend_impl", "pallas",
+                                "--raster.bwd_write", "scatter"])
+    cfg = apply_overrides(RasterConfig(), args, "raster")
+    assert (cfg.blend_impl, cfg.bwd_write) == ("pallas", "scatter")
+    line = ignored_flags_line(args)
+    assert "--raster.blend_impl pallas" in line and "--raster.bwd_write scatter" in line
+    assert "\n" not in line
+    assert ignored_flags_line(p.parse_args(base)) == ""
+    with pytest.raises(ValueError, match="blend_impl"):
+        apply_overrides(RasterConfig(), p.parse_args(
+            base + ["--raster.blend_impl", "triton"]), "raster")
+
+
+@pytest.fixture(scope="module")
+def eval_run(tmp_path_factory):
+    """A run directory as the edit CLI leaves it (edited/, unedited/,
+    config.json), and one carried tiny CLIP pair for both eval CLIs."""
+    from PIL import Image
+    from test_torch_metrics import carried_scorers
+
+    run = tmp_path_factory.mktemp("eval") / "run"
+    rng = np.random.default_rng(1)
+    for name, fmt in (("edited", "{:05d}.png"), ("unedited", "frame_{:05d}.jpg")):
+        (run / name).mkdir(parents=True)
+        for i in range(3):
+            Image.fromarray((rng.uniform(size=(40, 48, 3)) * 255).astype(np.uint8)
+                            ).save(run / name / fmt.format(i + 1))
+    (run / "config.json").write_text(json.dumps({"pipeline": {
+        "edit_prompt": "a polar bear", "reverse_prompt": "a bear statue"}}))
+    js, ts, _ = carried_scorers()
+    return run, js, ts
+
+
+@pytest.mark.parametrize("mode", ["dirs", "run"])
+def test_eval_cli_matches_jax(eval_run, mode, capsys):
+    """`cli.eval` with explicit directories and prompts, and with --run
+    (which also writes eval_metrics.json into the run): the same JSON
+    object as the JAX CLI's, the metrics within 1e-5."""
+    from gaussctrl_tpu.cli import eval as jeval
+    from gaussctrl_tpu_torch.cli import eval as teval
+
+    run, js, ts = eval_run
+    if mode == "dirs":
+        argv = ["--edited", str(run / "edited"), "--original",
+                str(run / "unedited"), "--edit-prompt", "a polar bear",
+                "--reverse-prompt", "a bear statue"]
+    else:
+        argv = ["--run", str(run)]
+    mp = pytest.MonkeyPatch()
+    mp.setattr("gaussctrl_tpu.metrics.CLIPScorer.from_dir", lambda *a, **k: js)
+    mp.setattr("gaussctrl_tpu_torch.metrics.CLIPScorer.from_dir",
+               lambda *a, **k: ts)
+    try:
+        ref = jeval.main(argv)
+        if mode == "run":
+            (run / "eval_metrics.json").unlink()
+        got = teval.main(argv + ["--device", "cpu"])
+    finally:
+        mp.undo()
+    assert set(got) == set(ref) and got["num_views"] == 3
+    for k, v in ref.items():
+        if isinstance(v, float):
+            assert abs(got[k] - v) <= 1e-5, k
+        else:
+            assert got[k] == v, k
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == got
+    if mode == "run":
+        assert json.loads((run / "eval_metrics.json").read_text()) == got
+
+
+def test_eval_cli_requires_prompt_or_run():
+    from gaussctrl_tpu_torch.cli import eval as teval
+    with pytest.raises(SystemExit):
+        teval.main(["--edited", "/nonexistent"])

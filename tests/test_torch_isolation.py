@@ -31,7 +31,11 @@ def test_package_imports_no_jax_or_reference_package():
     """Import every module of the port in a fresh interpreter, then check
     that neither jax nor any gaussctrl_tpu module was loaded."""
     mods = _all_modules()
-    assert "gaussctrl_tpu_torch.ops.flash_attention" in mods
+    for m in ("gaussctrl_tpu_torch.ops.flash_attention",
+              "gaussctrl_tpu_torch.seg.sam", "gaussctrl_tpu_torch.seg.dino",
+              "gaussctrl_tpu_torch.metrics.clip_metrics",
+              "gaussctrl_tpu_torch.cli.eval"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -128,7 +132,14 @@ def test_modules_and_chip_smoke_import_with_jax_and_safetensors_blocked(tmp_path
               "gaussctrl_tpu_torch.splat.densify",
               "gaussctrl_tpu_torch.splat.pretrain",
               "gaussctrl_tpu_torch.core.writer",
-              "gaussctrl_tpu_torch.cli.splat_train"):
+              "gaussctrl_tpu_torch.cli.splat_train",
+              "gaussctrl_tpu_torch.seg.masker", "gaussctrl_tpu_torch.seg.sam",
+              "gaussctrl_tpu_torch.seg.weights",
+              "gaussctrl_tpu_torch.seg.grounding",
+              "gaussctrl_tpu_torch.seg.dino",
+              "gaussctrl_tpu_torch.seg.dino_weights",
+              "gaussctrl_tpu_torch.metrics.clip_metrics",
+              "gaussctrl_tpu_torch.cli.eval"):
         assert m in mods, m
     path = tmp_path / "t.safetensors"
     code = ("import importlib, sys\n"
@@ -148,6 +159,19 @@ def test_modules_and_chip_smoke_import_with_jax_and_safetensors_blocked(tmp_path
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_segmentation_and_metrics_default_to_the_card():
+    """The masker stack and the CLIP scorer without a device ask for the
+    card, and raise without one rather than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from gaussctrl_tpu_torch.metrics import CLIPScorer
+    from gaussctrl_tpu_torch.seg.grounding import build_langsam_equivalent
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_langsam_equivalent()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CLIPScorer.from_dir(None)
 
 
 def test_pretrain_and_splat_train_default_to_the_card(tmp_path):

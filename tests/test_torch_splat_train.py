@@ -1,7 +1,9 @@
 """`python -m gaussctrl_tpu_torch.cli.splat_train --device cpu` against
 `python -m gaussctrl_tpu.cli.splat_train` on data/example_scene: the same
 artifact layout and dataparser transform, checkpoints that each package's
-`load_scene_npz` reads, and the port's resume of its own checkpoint.
+`load_scene_npz` reads, and the port's resume of its own checkpoint; and
+the `--archive-ckpts` cycle of both CLIs' `_save_ckpt` (the fp16 archive
+kept latest-only, except the archives git tracks).
 """
 
 import json
@@ -61,3 +63,73 @@ def test_cli_splat_train_matches_jax_cli(tmp_path):
                     ["--device", "cpu", "--trainer.num_steps", "5",
                      "--resume-checkpoint", str(tck)])
     assert (rrun / "ckpts/step-000000005.npz").exists()
+
+
+def _scene_pair(n=32, seed=3):
+    """One random scene in both packages' types."""
+    import jax.numpy as jnp
+    from gaussctrl_tpu.splat.scene import GaussianScene as JScene
+    from gaussctrl_tpu_torch.splat.scene import GaussianScene
+
+    r = np.random.RandomState(seed)
+    arrs = dict(means=r.randn(n, 3) * 2.0, scales=r.randn(n, 3) - 4.0,
+                quats=r.randn(n, 4), opacities=r.randn(n, 1),
+                features_dc=r.randn(n, 3), features_rest=r.randn(n, 15, 3) * 0.1)
+    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+    return (JScene(**{k: jnp.asarray(v) for k, v in arrs.items()}),
+            GaussianScene(**{k: torch.tensor(v) for k, v in arrs.items()}))
+
+
+def _files(d):
+    return sorted(p.name for p in Path(d).iterdir())
+
+
+def test_archive_ckpts_cycle_matches_jax(tmp_path):
+    """Two checkpoints with --archive-ckpts: both CLIs keep the latest
+    step and its fp16 archive only, with the same files bit for bit, and
+    the archive loads back in float32."""
+    from gaussctrl_tpu.cli.splat_train import _save_ckpt as j_save
+    from gaussctrl_tpu_torch.cli.splat_train import _save_ckpt
+    from gaussctrl_tpu_torch.core.ckpt import load_scene_npz
+
+    js, ts = _scene_pair()
+    for step in (500, 1000):
+        j_save(tmp_path / "jax", step, js, archive=True)
+        _save_ckpt(tmp_path / "port", step, ts, archive=True)
+    assert _files(tmp_path / "port") == _files(tmp_path / "jax") == \
+        ["step-000001000.fp16.npz", "step-000001000.npz"]
+    for name in _files(tmp_path / "jax"):
+        a, b = np.load(tmp_path / "jax" / name), np.load(tmp_path / "port" / name)
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=f"{name}:{k}")
+    got = load_scene_npz(tmp_path / "port" / "step-000001000.fp16.npz")
+    assert got.means.dtype == torch.float32
+
+
+def test_archive_prune_spares_git_tracked_like_jax(tmp_path):
+    """An archive that git tracks survives the latest-only pruning in both
+    CLIs; the untracked ones in between go."""
+    import subprocess
+
+    from gaussctrl_tpu.cli.splat_train import _save_ckpt as j_save
+    from gaussctrl_tpu_torch.cli.splat_train import _save_ckpt
+
+    js, ts = _scene_pair()
+    arcs = {}
+    for name, save, scene in (("jax", j_save, js), ("port", _save_ckpt, ts)):
+        root = tmp_path / name
+        ckpts = root / "run" / "ckpts"
+        subprocess.run(["git", "init", "-q", str(root)], check=True)
+        for k, v in (("user.email", "t@t"), ("user.name", "t")):
+            subprocess.run(["git", "-C", str(root), "config", k, v], check=True)
+        save(ckpts, 500, scene, archive=True)
+        subprocess.run(["git", "-C", str(root), "add", "-f",
+                        "run/ckpts/step-000000500.fp16.npz"], check=True)
+        subprocess.run(["git", "-C", str(root), "commit", "-qm", "archive 500"],
+                       check=True)
+        save(ckpts, 1000, scene, archive=True)
+        save(ckpts, 1500, scene, archive=True)
+        arcs[name] = sorted(p.name for p in ckpts.glob("*.fp16.npz"))
+    assert arcs["port"] == arcs["jax"] == \
+        ["step-000000500.fp16.npz", "step-000001500.fp16.npz"]
