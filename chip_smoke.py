@@ -91,7 +91,36 @@ Phases, each printing one JSON line with its wall time:
   9. splat_train  python -m gaussctrl_tpu_torch.cli.splat_train on
                   data/example_scene (300 steps, one refine, the resolution
                   ramp) in a subprocess: its checkpoint (loaded back),
-                  dataparser_transforms.json, events.jsonl and renders.
+                  dataparser_transforms.json, events.jsonl and renders;
+  10. render      python -m gaussctrl_tpu_torch.cli.render in process:
+                  `dataset` of that checkpoint (rgb, depth, accumulation,
+                  depth_npy), and on the smoke scene saved as .npz
+                  `camera-path` (8 perspective views at 512x512, one
+                  equirectangular 1024x512, one ODS and one VR180 frame),
+                  `spiral` (an mp4 where OpenCV is installed) and
+                  `interpolate`; exact K1 launches (one a view,
+                  one a panorama strip), K1 against the CPU's plain blend
+                  at each shape: a 512x512 view, a 45x1532 panorama strip,
+                  a 45x768 ODS strip and a 200x200 dataset view, ms a view
+                  and a panorama frame, and one render traced by
+                  `core.writer.cuda_trace`, whose trace names K1 as often
+                  as the counter;
+  11. viewer      viewer.ViewerServer on the smoke scene at 512x512 on
+                  127.0.0.1: the page, /info, POSTs in every mode, with
+                  markers and with view jumps (one K1 launch each, each the
+                  JPEG of its frame), two requests at once from two
+                  threads, and the latency of sequential requests;
+  12. export      python -m gaussctrl_tpu_torch.cli.export of both scenes to
+                  gaussian-splat and point-cloud PLYs, read back bit for
+                  bit;
+  13. certify     python -m gaussctrl_tpu_torch.cli.certify (run after 7b,
+                  while the files of 6a and 7b exist) on the SD-1.5
+                  directories, their ControlNet given trained-like output
+                  convs, and the SAM ViT-H / GroundingDINO Swin-B files, at
+                  10 DDIM steps: no check with an error or a non-finite
+                  number, the schedule and both ControlNet checks ok, the
+                  checks that random weights fail recorded, exact
+                  K2/K3/K5/K6 launches and each check's seconds.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero, and
@@ -419,7 +448,7 @@ def smoke_scene(n: int, device):
 
 
 def splat_inputs(scene, cams, ch: int = 4, logit_shift: float = 0.0):
-    """The blend's inputs for view 0 of the smoke scene, as render_rgbd
+    """The blend's inputs for view 0 of `cams` on `scene`, as render_rgbd
     builds them: (args of `blend`, the binning). `logit_shift` raises every
     opacity's logit (6 puts most opacities above 0.99)."""
     import importlib
@@ -437,7 +466,8 @@ def splat_inputs(scene, cams, ch: int = 4, logit_shift: float = 0.0):
                              cams.cx[0], cams.cy[0], W, H, opacities=opac)
     dirs = scene.means - c2w[:3, 3][None]
     dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-8)
-    rgb = torch.clamp_min(eval_sh(3, dirs, scene.colors) + 0.5, 0.0)
+    rgb = torch.clamp_min(eval_sh(scene.sh_degree, dirs, scene.colors) + 0.5,
+                          0.0)
     colors = torch.cat([rgb, proj.depths[:, None]], -1)[:, :ch].contiguous()
     radii = torch.where(opac >= rast.ALPHA_THRESH, proj.radii,
                         torch.zeros_like(proj.radii))
@@ -459,21 +489,31 @@ def tile_load(done, attrs) -> dict:
                 empty_tiles=int((d == 0).sum().item()), **attrs)
 
 
+def k1_held(args, plain_device, **blend_kw) -> tuple:
+    """K1 on `args` (splat_inputs') and the largest absolute error of its
+    tiles and alpha against blend_plain on the same inputs, run on
+    `plain_device`: (K1's outputs, the error)."""
+    import torch
+    from gaussctrl_tpu_torch.ops import splat_blend as sb
+    out = sb.blend(*args, **blend_kw)
+    ref_tiles, ref_alpha = sb.blend_plain(*[
+        a.to(plain_device) if isinstance(a, torch.Tensor) else a
+        for a in args])
+    err = max(float((out[0].to(plain_device) - ref_tiles).abs().max()),
+              float((out[1].to(plain_device) - ref_alpha).abs().max()))
+    return out, err
+
+
 def check_k1(scene, cams, reps):
     """K1 on one 512x512 view of the smoke scene against blend_plain; its
     packed records against pack_records, bit for bit."""
-    import torch
     from gaussctrl_tpu_torch.ops import splat_blend as sb
 
     args, b = splat_inputs(scene, cams)
     ntx, nty = args[-2:]
     W, H = cams.width, cams.height
-    tiles, alpha, done, records, _, _ = sb.blend(
-        *args, return_done=True, return_state=True)
-    ref_tiles, ref_alpha = sb.blend_plain(*args)
-    torch.cuda.synchronize()
-    err = max((tiles - ref_tiles).abs().max().item(),
-              (alpha - ref_alpha).abs().max().item())
+    (tiles, alpha, done, records, _, _), err = k1_held(
+        args, DEVICE, return_done=True, return_state=True)
     rec_err = (records - sb.pack_records(*args[3:7])).abs().max().item()
     # the records are the same products as pack_records': bit for bit
     tol = K1_TOL
@@ -844,17 +884,49 @@ def tiny_pipeline(device: str, state: dict) -> dict:
             for k in ("unedited", "depths", "z_T", "edited")}
 
 
-def _held_to_plain(kernel, plain, worst: dict):
-    """`kernel` that also holds each of its outputs against `plain` on the
-    same inputs, keeping the worst errors and the number of calls."""
+def _held_to_plain(kernel, plain, worst: dict, per_shape: int | None = None):
+    """`kernel` that also holds its outputs against `plain` on the same
+    inputs, keeping the worst errors and the number of calls held: every
+    call, or with `per_shape` the first `per_shape` calls of each distinct
+    argument signature (tensor shapes and the other arguments), which are
+    then listed under "shapes" with the seconds spent holding them."""
+    import torch
+    seen = {}
+
     def call(*args):
         out = kernel(*args)
+        if per_shape is not None:
+            sig = tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                        for a in args)
+            seen[sig] = seen.get(sig, 0) + 1
+            if seen[sig] > per_shape:
+                return out
+            worst["shapes"] = [list(k) for k in seen]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
         e = attn_errors(out, plain(*args))
         worst["calls"] = worst.get("calls", 0) + 1
         for key in ("scaled_err", "rel_rms_err"):
             worst[key] = max(worst.get(key, 0.0), e[key])
+        if per_shape is not None:
+            worst["hold_s"] = worst.get("hold_s", 0.0) + time.perf_counter() - t0
         return out
     return call
+
+
+def attention_holds(per_shape: int | None = None) -> tuple:
+    """(patch entries, worst errors by kernel) that hold every call of K2,
+    K3, K5 and K6 against its plain version (`_held_to_plain`), where the
+    callers look each wrapper up."""
+    from gaussctrl_tpu_torch.diffusion import processors
+    from gaussctrl_tpu_torch.ops import flash_attention as fa
+    kernels = [(fa, "flash_attention_t", fa.attention_plain),
+               (processors, "cross_view_attention", fa.cross_view_attention_plain),
+               (fa, "attention_full", fa.attention_plain),
+               (fa, "attention_stream", fa.attention_stream_plain)]
+    in_situ = {name: {} for _, name, _ in kernels}
+    return [(m, n, _held_to_plain(getattr(m, n), plain, in_situ[n], per_shape))
+            for m, n, plain in kernels], in_situ
 
 
 @contextlib.contextmanager
@@ -905,13 +977,8 @@ def check_small():
                 fa.flash_attention, kernel="stream", is_self=False)))]
     with _patched(routes):
         cpu = tiny_pipeline("cpu", state)
-    kernels = [(fa, "flash_attention_t", fa.attention_plain),
-               (processors, "cross_view_attention", fa.cross_view_attention_plain),
-               (fa, "attention_full", fa.attention_plain),
-               (fa, "attention_stream", fa.attention_stream_plain)]
-    in_situ = {name: {} for _, name, _ in kernels}
-    with _patched(routes + [(m, n, _held_to_plain(getattr(m, n), plain, in_situ[n]))
-                            for m, n, plain in kernels]):
+    holds, in_situ = attention_holds()
+    with _patched(routes + holds):
         card = tiny_pipeline(DEVICE, state)
     errs, rel = {}, {}
     for k, ref in cpu.items():
@@ -1603,15 +1670,16 @@ def check_seg_f64(sam, dino, tok, view) -> dict:
     return errs
 
 
-def check_masked_edit(pipe, card: str) -> dict:
+def check_masked_edit(pipe, card: str, root: str):
     """The masked edit at full width: the segmentation checkpoints written
-    in the reference layouts and read back through the port's loaders;
+    in the reference layouts under `root` (kept for phase `certify`; the
+    caller removes it) and read back through the port's loaders;
     `GaussCtrlPipeline.run()` (MASK_STEPS DDIM steps, MASK_REOPT_STEPS
     re-optimisation steps) with `langsam_obj` and a GroundedSAMMasker over
     GroundingDINO on a fresh smoke scene, with exact kernel launch counts;
     the CLIP proposer's route and the CLIP metrics on the same views; the
     tiny stack card against CPU and the full width float32 against
-    float64."""
+    float64. Returns (the record, the checkpoint files)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1633,30 +1701,26 @@ def check_masked_edit(pipe, card: str) -> dict:
     checks, notes = {}, []
 
     # 1. checkpoints written, and read back through the port's loaders
-    root = tempfile.mkdtemp(prefix="gaussctrl_seg_")
-    try:
-        t0 = time.perf_counter()
-        files = write_seg_checkpoints(root, cfgs)
-        write_s = time.perf_counter() - t0
-        nbytes = sum(os.path.getsize(os.path.join(d, f))
-                     for d, _, fs in os.walk(root) for f in fs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sam = load_sam(files["sam"], device=DEVICE)
-        dino, tok = load_dino(files["dino"], files["vocab"], device=DEVICE)
-        clip = load_clip_model(files["clip"], device=DEVICE)
-        torch.cuda.synchronize()
-        read_s = time.perf_counter() - t0
-        written = files.pop("tensors")
-        checks["configs_from_files"] = (sam.cfg, dino.cfg, clip.vision_cfg,
-                                        clip.text_cfg) == tuple(cfgs)
-        checks["read_back_bit_exact"] = (
-            _read_back_exact(sam, written["sam"])
-            and _read_back_exact(dino, written["dino"])
-            and _read_back_exact(clip, written["clip"]))
-        del written
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    files = write_seg_checkpoints(root, cfgs)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(root) for f in fs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sam = load_sam(files["sam"], device=DEVICE)
+    dino, tok = load_dino(files["dino"], files["vocab"], device=DEVICE)
+    clip = load_clip_model(files["clip"], device=DEVICE)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    written = files.pop("tensors")
+    checks["configs_from_files"] = (sam.cfg, dino.cfg, clip.vision_cfg,
+                                    clip.text_cfg) == tuple(cfgs)
+    checks["read_back_bit_exact"] = (
+        _read_back_exact(sam, written["sam"])
+        and _read_back_exact(dino, written["dino"])
+        and _read_back_exact(clip, written["clip"]))
+    del written
     tcfg = cfgs[3]
     clip_tok = load_tokenizer(None, tcfg)
 
@@ -1823,7 +1887,7 @@ def check_masked_edit(pipe, card: str) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"masked_edit failed {bad}")
-    return rec
+    return rec, files
 
 
 # ---------------------------------------------------------------------------
@@ -2296,6 +2360,7 @@ def check_splat_train(out_root: str):
     refines = [e for e in events if "n_born" in e]
     evals = [e for e in events if "eval_psnr" in e]
     rec = dict(phase="splat_train", seconds=time.perf_counter() - t0,
+               ckpt=ckpt,
                gaussians=scene.num_gaussians, finite=finite, renders=renders,
                refines=refines, eval_psnr=[e["eval_psnr"] for e in evals],
                transforms=os.path.exists(
@@ -2305,6 +2370,577 @@ def check_splat_train(out_root: str):
     if not (finite and len(renders) == 4 and len(refines) == 1
             and rec["transforms"] and scene.num_gaussians > 0):
         raise AssertionError(f"splat_train's outputs fail their checks: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the render entry point (cli.render) through K1
+# ---------------------------------------------------------------------------
+
+# perspective camera-path frames at SIZE, the equirectangular frame's size,
+# the CLI's default strips a panorama, spiral frames, timing reps
+RENDER_FRAMES, PANO_W, PANO_H, PANO_STRIPS = 8, 1024, 512, 32
+SPIRAL_FRAMES, RENDER_REPS = 8, 10
+# the strip of the equirectangular frame held against the CPU's plain blend
+PANO_HELD_STRIP = 16
+
+
+def camera_path_file(path: str, cams, camera_type: str, w: int, h: int):
+    """A nerfstudio camera-path JSON of `cams`' poses (their vertical field
+    of view), at `w`×`h` and of `camera_type`."""
+    import numpy as np
+    c2w = cams.c2w.cpu().numpy()
+    fov = math.degrees(2 * math.atan(cams.height / (2 * float(cams.fy[0]))))
+    frames = [{"camera_to_world": np.concatenate(
+        [m, [[0.0, 0.0, 0.0, 1.0]]]).reshape(-1).tolist(), "fov": fov}
+        for m in c2w]
+    with open(path, "w") as f:
+        json.dump({"render_height": h, "render_width": w, "fps": 24,
+                   "camera_type": camera_type, "camera_path": frames}, f)
+    return path
+
+
+def run_cli(main_fn, argv) -> tuple:
+    """(seconds, K1 launches) of one in-process CLI call on the card."""
+    import torch
+    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    main_fn(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(launch_counts)
+
+
+def k1_trace_events(trace_dir: str) -> int:
+    """K1 kernels named in the newest Chrome trace of `trace_dir`."""
+    newest = max((os.path.join(trace_dir, f) for f in os.listdir(trace_dir)),
+                 key=os.path.getmtime)
+    with open(newest) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and "splat_blend_fwd_kernel" in e.get("name", ""))
+
+
+def check_render(card: str, run_ckpt: str, smoke_npz: str, root: str,
+                 out_dir: str):
+    """`python -m gaussctrl_tpu_torch.cli.render` on the card, in process:
+    `dataset` on data/example_scene from the checkpoint phase `splat_train`
+    wrote (rgb, depth, accumulation, --save-depth-npy; the reference's own
+    use) and, on the 200,000-gaussian smoke scene saved as .npz,
+    `camera-path` (RENDER_FRAMES perspective views at SIZE², then one
+    frame each of equirectangular PANO_W×PANO_H, ODS and VR180), `spiral`
+    and `interpolate` over the example scene's cameras. K1's launches are
+    held exactly (one a view; a panorama one a strip: PANO_STRIPS, ODS
+    2·PANO_STRIPS, VR180 2·max(PANO_STRIPS // 2, 4)); each shape K1 gets
+    here is held against the plain blend on the CPU: view 0 of the
+    perspective path, one 45×1532 strip of the equirectangular frame (the
+    VR180 strips have that shape too), one 45×768 strip of an ODS eye and
+    one 200×200 dataset view of the example scene; ms a 512² view and a
+    panorama frame are timed; and one render is traced with `cuda_trace`,
+    whose trace must name K1 as often as the counter."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from gaussctrl_tpu_torch.cameras import stereo
+    from gaussctrl_tpu_torch.cameras.camera import make_cameras
+    from gaussctrl_tpu_torch.cli import render as cli
+    from gaussctrl_tpu_torch.core.ckpt import load_scene_npz
+    from gaussctrl_tpu_torch.core.writer import cuda_trace
+    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
+    from gaussctrl_tpu_torch.splat.render import render_rgbd
+    t_phase = time.perf_counter()
+    example = os.path.join(HERE, "data", "example_scene")
+    checks, calls = {}, {}
+
+    def expect(name, secs_counts, k1, frames):
+        secs, counts = secs_counts
+        want = dict.fromkeys(counts, 0)
+        want["splat_blend_fwd"] = k1
+        calls[name] = dict(seconds=secs, frames=frames, launches=counts,
+                           expected_launches=want)
+        checks[f"{name}_launches"] = counts == want
+
+    # 1. the dataset views of the pre-trained example scene
+    out = os.path.join(root, "dataset")
+    expect("dataset", run_cli(cli.main, [
+        "dataset", "--load-checkpoint", run_ckpt, "--data", example,
+        "--output-path", out, "--rendered-output-names", "rgb", "depth",
+        "accumulation", "--save-depth-npy"]), 12, 12)
+    depths = [np.load(os.path.join(out, "depth_npy", f))
+              for f in sorted(os.listdir(os.path.join(out, "depth_npy")))]
+    checks["dataset_files"] = all(
+        len(os.listdir(os.path.join(out, o))) == 12
+        for o in ("rgb", "depth", "accumulation")) and len(depths) == 12
+    checks["dataset_depth_npy"] = all(d.shape == (200, 200, 1)
+                                      and bool(np.isfinite(d).all())
+                                      for d in depths)
+
+    # 2. camera paths on the smoke scene
+    cams = orbit_cameras(RENDER_FRAMES, SIZE, "cpu")
+    persp = camera_path_file(os.path.join(root, "persp.json"), cams,
+                             "perspective", SIZE, SIZE)
+    out = os.path.join(root, "persp")
+    expect("camera_path", run_cli(cli.main, [
+        "camera-path", "--load-checkpoint", smoke_npz,
+        "--camera-path-filename", persp, "--output-path", out,
+        "--rendered-output-names", "rgb", "depth"]),
+        RENDER_FRAMES, RENDER_FRAMES)
+    frame0 = np.asarray(Image.open(os.path.join(out, "rgb", "00000.png")))
+    checks["camera_path_frames"] = (
+        len(os.listdir(os.path.join(out, "rgb"))) == RENDER_FRAMES
+        and frame0.shape == (SIZE, SIZE, 3) and int(frame0.max()) > 0)
+    panos = {"equirectangular": (PANO_STRIPS, (PANO_H, PANO_W, 3)),
+             "omni-directional-stereo": (2 * PANO_STRIPS, (PANO_H, PANO_W, 3)),
+             "vr180": (2 * max(PANO_STRIPS // 2, 4), (PANO_H, PANO_W, 3))}
+    for kind, (k1, shape) in panos.items():
+        path = camera_path_file(os.path.join(root, f"{kind}.json"), cams[:1],
+                                kind, PANO_W, PANO_H)
+        out = os.path.join(root, kind)
+        expect(kind, run_cli(cli.main, [
+            "camera-path", "--load-checkpoint", smoke_npz,
+            "--camera-path-filename", path, "--output-path", out,
+            "--pano-strips", str(PANO_STRIPS)]), k1, 1)
+        img = np.asarray(Image.open(os.path.join(out, "rgb_00000.png")))
+        checks[f"{kind}_frame"] = img.shape == shape and int(img.max()) > 0
+
+    # 3. trajectories through the example scene's cameras; the spiral as an
+    # mp4 where OpenCV is installed (the CLI's video writer), else images
+    import importlib.util
+    video = importlib.util.find_spec("cv2") is not None
+    out = os.path.join(root, "spiral")
+    expect("spiral", run_cli(cli.main, [
+        "spiral", "--load-checkpoint", smoke_npz, "--data", example,
+        "--frames", str(SPIRAL_FRAMES), "--radius", "0.2",
+        "--output-format", "video" if video else "images",
+        "--output-path", out]), SPIRAL_FRAMES, SPIRAL_FRAMES)
+    if video:
+        import cv2
+        cap = cv2.VideoCapture(os.path.join(out, "rgb.mp4"))
+        n = 0
+        while cap.read()[0]:
+            n += 1
+        cap.release()
+        checks["spiral_mp4_frames"] = n == SPIRAL_FRAMES
+    else:
+        checks["spiral_frames"] = len(os.listdir(
+            os.path.join(out, "rgb"))) == SPIRAL_FRAMES
+    expect("interpolate", run_cli(cli.main, [
+        "interpolate", "--load-checkpoint", smoke_npz, "--data", example,
+        "--interpolation-steps", "1",
+        "--output-path", os.path.join(root, "interpolate")]), 11, 11)
+
+    # 4. K1 against the CPU's plain blend at each shape the path gives it:
+    # perspective view 0, the strip at PANO_HELD_STRIP of an equirectangular
+    # (and VR180) frame, the same strip of an ODS eye (its panorama is
+    # PANO_H // 2 high), and dataset view 0 of the pre-trained example scene
+    scene = load_scene_npz(smoke_npz, device=DEVICE)
+    cams = cams.to(DEVICE)
+    theta = -math.pi + (PANO_HELD_STRIP + 0.5) * 2 * math.pi / PANO_STRIPS
+    base_c2w = cams.c2w[0].cpu().double().numpy()
+
+    def strip(eye, height):
+        fx, fy, w, h = stereo.strip_size(PANO_W, height, strips=PANO_STRIPS)
+        c2w = stereo._strip_camera(base_c2w, theta, eye, 0.063)
+        return make_cameras(c2w[None], fx, fy, w / 2, h / 2, w, h, DEVICE)
+
+    example_scene = cli._load_scene(run_ckpt, device=DEVICE)
+    held_views = dict(view_512=(scene, cams),
+                      pano_strip=(scene, strip(0.0, PANO_H)),
+                      ods_strip=(scene, strip(-1.0, PANO_H // 2)),
+                      dataset_view=(example_scene, cli._dataset_cameras(
+                          example, device=DEVICE)))
+    held = {name: dict(shape=[c.height, c.width], max_abs_err=k1_held(
+                splat_inputs(s, c)[0], "cpu")[1])
+            for name, (s, c) in held_views.items()}
+    checks["k1_vs_cpu_plain"] = all(h["max_abs_err"] <= K1_TOL
+                                    for h in held.values())
+
+    # 5. ms a 512x512 view (render_rgbd, synchronised) and a panorama frame
+    bg = torch.zeros(3, device=DEVICE)
+
+    def view(i=0):
+        with torch.no_grad():
+            return render_rgbd(scene, cams.c2w[i], cams.fx[i], cams.fy[i],
+                               cams.cx[i], cams.cy[i], SIZE, SIZE, bg)
+
+    view()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(RENDER_REPS):
+        view(i % RENDER_FRAMES)
+    torch.cuda.synchronize()
+    view_ms = (time.perf_counter() - t0) / RENDER_REPS * 1e3
+    c2w0 = cams.c2w[0].cpu().numpy()
+    pano_ms = {}
+    for kind, fn in (("equirectangular", stereo.render_pano),
+                     ("omni-directional-stereo", stereo.render_ods),
+                     ("vr180", stereo.render_vr180)):
+        kw = dict(strips=PANO_STRIPS) if kind != "vr180" else dict(
+            strips=max(PANO_STRIPS // 2, 4))
+        t0 = time.perf_counter()
+        fn(scene, c2w0, PANO_W, PANO_H, (0.0, 0.0, 0.0), **kw)
+        pano_ms[kind] = (time.perf_counter() - t0) * 1e3
+
+    # 6. one trace of three views: K1 named as often as counted
+    trace_dir = os.path.join(out_dir or root, "render_trace")
+    reset_launch_counts()
+    with cuda_trace(trace_dir):
+        for i in range(3):
+            view(i)
+        torch.cuda.synchronize()
+    traced = dict(counted=launch_counts["splat_blend_fwd"],
+                  in_trace=k1_trace_events(trace_dir))
+    checks["trace_names_k1"] = traced["counted"] == traced["in_trace"] == 3
+
+    rec = dict(phase="render", card=card, gaussians=GAUSSIANS, size=SIZE,
+               spiral_format="video" if video else "images",
+               pano=[PANO_W, PANO_H], pano_strips=PANO_STRIPS,
+               calls=calls, k1_vs_cpu_plain=held,
+               k1_tol=K1_TOL, view_ms=view_ms, pano_frame_ms=pano_ms,
+               trace=traced, checks=checks,
+               seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"render failed {bad}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the viewer server on the card
+# ---------------------------------------------------------------------------
+
+VIEWER_QUERIES = [
+    {"az": 0.3, "el": 0.2, "r": 3.5, "center": [0, 0, 0], "mode": "rgb"},
+    {"az": 0.3, "el": 0.2, "r": 3.5, "center": [0, 0, 0], "mode": "depth"},
+    {"az": 1.1, "el": 0.4, "r": 3.0, "center": [0, 0, 0], "mode": "alpha"},
+    {"az": 0.3, "el": 0.3, "r": 8.0, "center": [0, 0, 0], "mode": "rgb",
+     "markers": True},
+    {"az": 0, "el": 0, "r": 0, "center": [0, 0, 0], "mode": "rgb",
+     "view": 2},
+    {"az": 0, "el": 0, "r": 0, "center": [0, 0, 0], "mode": "depth",
+     "markers": True, "view": 1},
+]
+VIEWER_LATENCY_REQUESTS = 20
+
+
+def check_viewer(card: str, scene):
+    """`viewer.ViewerServer` on the smoke scene at SIZE² with 4 orbit
+    training cameras, serving on 127.0.0.1 (a free port): GET / and /info,
+    POSTs in rgb, depth and alpha modes, with markers and with view jumps
+    (one K1 launch each, and each answer the JPEG of `_frame_array` of the
+    request), two POSTs sent at once from two threads, and the latency of
+    sequential requests."""
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
+    from gaussctrl_tpu_torch.viewer import ViewerServer
+    t_phase = time.perf_counter()
+    cams = orbit_cameras(4, SIZE, DEVICE)
+    srv = ViewerServer(scene, SIZE, SIZE, port=0, cameras=cams,
+                       host="127.0.0.1")
+    srv.serve(blocking=False)
+    base = f"http://127.0.0.1:{srv.port}"
+
+    def get(path):
+        return urllib.request.urlopen(base + path, timeout=120).read()
+
+    def post(q):
+        req = urllib.request.Request(base + "/render",
+                                     data=json.dumps(q).encode())
+        return urllib.request.urlopen(req, timeout=120).read()
+
+    checks = {}
+    try:
+        checks["page"] = b"<img id=\"v\"" in get("/")
+        info = json.loads(get("/info"))
+        checks["info"] = info == {"num_views": 4, "num_gaussians": GAUSSIANS}
+        reset_launch_counts()
+        answers = [post(q) for q in VIEWER_QUERIES]
+        counts = dict(launch_counts)
+        expected = dict.fromkeys(counts, 0)
+        expected["splat_blend_fwd"] = len(VIEWER_QUERIES)
+        checks["launches"] = counts == expected
+        frames = [srv._frame_array(q) for q in VIEWER_QUERIES]
+        checks["answers_are_the_frames"] = all(
+            a == srv._jpeg(f) for a, f in zip(answers, frames))
+        checks["markers_drawn"] = all(
+            bool((f == (0, 255, 90)).all(-1).any())
+            for q, f in zip(VIEWER_QUERIES, frames) if q.get("markers"))
+        checks["frames_not_blank"] = all(int(f.max()) > 0 for f in frames)
+
+        # two requests at once
+        pair = [VIEWER_QUERIES[0], VIEWER_QUERIES[5]]
+        got = [None, None]
+        go = threading.Barrier(2)
+
+        def send(i):
+            go.wait(timeout=60)
+            got[i] = post(pair[i])
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        checks["concurrent_done"] = not any(t.is_alive() for t in threads)
+        checks["concurrent_answers"] = all(
+            got[i] == srv._jpeg(srv._frame_array(pair[i])) for i in range(2))
+
+        # latency of sequential requests (host clock around each answer)
+        lat = []
+        for i in range(VIEWER_LATENCY_REQUESTS):
+            q = dict(VIEWER_QUERIES[0], az=0.1 * i)
+            t0 = time.perf_counter()
+            post(q)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        frame_ms = cuda_ms(lambda: srv._frame_array(VIEWER_QUERIES[0]), 5)
+    finally:
+        srv.shutdown()
+    torch.cuda.synchronize()
+    rec = dict(phase="viewer", card=card, size=SIZE, gaussians=GAUSSIANS,
+               requests=len(VIEWER_QUERIES), request_ms_mean=float(np.mean(lat)),
+               request_ms_median=float(np.median(lat)),
+               request_ms_min=float(np.min(lat)), frame_array_ms=frame_ms,
+               jpeg_bytes=[len(a) for a in answers], launches=counts,
+               expected_launches=expected, checks=checks,
+               seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"viewer failed {bad}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the export entry point
+# ---------------------------------------------------------------------------
+
+def check_export(card: str, scenes: dict, root: str):
+    """`python -m gaussctrl_tpu_torch.cli.export` on the card, in process,
+    for each scene file of `scenes` to a gaussian-splat PLY (read back by
+    `read_gaussian_ply`: every field bit for bit) and a point-cloud PLY
+    (the means of the gaussians whose opacity passes 0.05, bit for bit)."""
+    import numpy as np
+    import torch
+    from gaussctrl_tpu_torch.cli import export as cli
+    from gaussctrl_tpu_torch.cli.render import _load_scene
+    from gaussctrl_tpu_torch.data.ply import read_gaussian_ply, read_ply
+    t_phase = time.perf_counter()
+    checks, seconds = {}, {}
+    for name, path in scenes.items():
+        scene = _load_scene(path)
+        for fmt in ("gaussian-splat", "point-cloud"):
+            out = os.path.join(root, f"{name}_{fmt}.ply")
+            t0 = time.perf_counter()
+            cli.main(["--load-checkpoint", path, "--output", out,
+                      "--format", fmt])
+            seconds[f"{name}_{fmt}"] = time.perf_counter() - t0
+            if fmt == "gaussian-splat":
+                back = read_gaussian_ply(out)
+                checks[f"{name}_{fmt}"] = all(
+                    torch.equal(getattr(back, k), getattr(scene, k))
+                    for k in TRAIN_FIELDS)
+            else:
+                pts = read_ply(out)
+                keep = (torch.sigmoid(scene.opacities[:, 0]) > 0.05).numpy()
+                xyz = np.stack([pts["x"], pts["y"], pts["z"]], 1)
+                checks[f"{name}_{fmt}"] = bool(np.array_equal(
+                    xyz, scene.means.numpy()[keep]))
+    rec = dict(phase="export", card=card, scenes=list(scenes),
+               seconds_per_call=seconds, checks=checks,
+               seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"export failed {bad}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the real-weight battery (cli.certify) at full width
+# ---------------------------------------------------------------------------
+
+# DDIM steps of the battery's invert/denoise (its default is 20)
+CERTIFY_STEPS = 10
+# checks that random weights fail by design: recorded, not asserted
+CERTIFY_RANDOM_FAILS = ("vae_roundtrip", "invert_denoise_roundtrip",
+                        "cross_view_edit", "mask_iou")
+CERTIFY_MUST_PASS = ("alpha_schedule", "controlnet_nonzero",
+                     "controlnet_scale_response")
+# calls of each argument signature of K2/K3/K5/K6 held against the plain
+# versions during the battery (every signature is held)
+CERTIFY_HELD_PER_SHAPE = 2
+CERTIFY_CHECKS = ("check_tokenizer", "check_sd_stack", "check_cross_view_edit",
+                  "check_sam", "check_mask_iou", "check_dino")
+# the ControlNet's zero-initialised output convs (those `zero_init_convs`
+# zeroes), given seeded values so that the files read as a trained one's
+CONTROLNET_OUTPUT_CONVS = ("controlnet_down_blocks.", "controlnet_mid_block.",
+                           "controlnet_cond_embedding.conv_out.")
+
+
+def write_trained_controlnet(cn_dir: str, root: str) -> str:
+    """A copy of the ControlNet directory whose output convs hold seeded
+    values (N(0, 0.02²), fp16) in place of the zeros of an initialisation."""
+    import torch
+    from gaussctrl_tpu_torch.diffusion import weights as w
+    sd = w.read_safetensors(os.path.join(cn_dir,
+                                         "diffusion_pytorch_model.safetensors"))
+    gen = torch.Generator().manual_seed(7)
+    for k, v in sd.items():
+        if k.startswith(CONTROLNET_OUTPUT_CONVS):
+            sd[k] = 0.02 * torch.randn(v.shape, generator=gen)
+    out = os.path.join(root, "controlnet_trained")
+    os.makedirs(out)
+    w.save_safetensors(os.path.join(out, "diffusion_pytorch_model.safetensors"),
+                       {k: v.half() for k, v in sd.items()})
+    return out
+
+
+def certify_expected(steps: int) -> dict:
+    """The exact kernel launches of the battery's SD checks at SD-1.5 width
+    over `steps` DDIM steps, from the layer counts. check_sd_stack: two
+    eps calls and `steps` each of inversion and unguided denoise at B=1
+    (no processor: every self-attention to K2, every text cross-attention
+    to its kernel), three VAE calls (encode, two decodes). check_cross_view
+    _edit: the inversion at B=2, the CFG denoise at B=4 with the cross-view
+    processors (one reference, K3 at the fused levels, the composed 64-token
+    level: the UNet's self branch to K2, one reference call in both
+    networks) and again without them, an encode and two decodes."""
+    from gaussctrl_tpu_torch.ops import launch_counts
+    n_unet = sum(u for u, _ in LAYERS_PER_LEVEL.values())
+    n_cn = sum(c for _, c in LAYERS_PER_LEVEL.values())
+    plain_fwd = (2 + 2 * steps) + steps + steps     # no processor
+    xview_fwd = steps
+    want = dict.fromkeys(launch_counts, 0)
+    want["flash_attention_t"] = plain_fwd * (n_unet + n_cn)
+    for t, c in LEVELS:
+        u, n = LAYERS_PER_LEVEL[t]
+        want[std_kernel(c // HEADS, TEXT_TOKENS)] += (plain_fwd + xview_fwd) * (u + n)
+        if str(t) in fused_levels():
+            want["cross_view_attention"] += xview_fwd * (u + n)
+        else:
+            want["flash_attention_t"] += xview_fwd * u
+            want[std_kernel(c // HEADS, t)] += xview_fwd * 1 * (u + n)
+    want[std_kernel(VAE_WIDTH, VAE_TOKENS)] += 3 + 3
+    return want
+
+
+def _non_finite(obj, path="") -> list:
+    if isinstance(obj, dict):
+        return [p for k, v in obj.items() for p in _non_finite(v, f"{path}/{k}")]
+    if isinstance(obj, (list, tuple)):
+        return [p for i, v in enumerate(obj) for p in _non_finite(v, f"{path}/{i}")]
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return [path]
+    return []
+
+
+def check_certify(card: str, ckpt_dirs, seg_files: dict, root: str):
+    """`python -m gaussctrl_tpu_torch.cli.certify`, in process on the card,
+    on the SD-1.5 diffusers directories of phase `weights` (the ControlNet
+    given trained-like output convs) and the SAM ViT-H and GroundingDINO
+    Swin-B files of phase `masked_edit`, with CERTIFY_STEPS DDIM steps. The
+    battery never raises; this phase fails on any check that carries an
+    error or a non-finite number, on CERTIFY_MUST_PASS not ok, on
+    K2/K3/K5/K6 launches other than `certify_expected`'s, and unless each
+    of the four, held against its plain version on the battery's own
+    inputs (the first CERTIFY_HELD_PER_SHAPE calls of each argument
+    signature: K3 at one reference and two CFG groups, K2/K5 at batch 1, 2
+    and 4, K6 in the VAE), agrees within the attention tolerances. The
+    checks that random weights fail by design are recorded. Each check's
+    seconds leave out the time spent holding its calls, which is recorded
+    apart."""
+    import torch
+    from gaussctrl_tpu_torch import certify as battery
+    from gaussctrl_tpu_torch.cli import certify as cli
+    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cn_dir = write_trained_controlnet(ckpt_dirs[1], root)
+    cn_s = time.perf_counter() - t0
+    out = os.path.join(root, "certify.json")
+    argv = ["--diffusers-dir", ckpt_dirs[0], "--controlnet-dir", cn_dir,
+            "--sam-ckpt", seg_files["sam"], "--dino-ckpt", seg_files["dino"],
+            "--dino-vocab", seg_files["vocab"],
+            "--num-inference-steps", str(CERTIFY_STEPS), "--out", out]
+    holds, in_situ = attention_holds(CERTIFY_HELD_PER_SHAPE)
+    # each check timed where the battery calls it (a module global), less
+    # the seconds its calls spent being held against the plain versions
+    seconds, held_seconds, saved = {}, {}, {}
+
+    def hold_s():
+        return sum(w.get("hold_s", 0.0) for w in in_situ.values())
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t, h = time.perf_counter(), hold_s()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                held_seconds[name] = hold_s() - h
+                seconds[name] = time.perf_counter() - t - held_seconds[name]
+        return call
+
+    for name in CERTIFY_CHECKS:
+        saved[name] = getattr(battery, name)
+        setattr(battery, name, timed(name, saved[name]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with _patched(holds):
+            rc = cli.main(argv)
+    finally:
+        for name, fn in saved.items():
+            setattr(battery, name, fn)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    with open(out) as f:
+        verdict = json.load(f)
+    expected = certify_expected(CERTIFY_STEPS)
+    checks_ = verdict["checks"]
+    # a crashed SD stack check merges its {"ok", "error"} into the checks
+    # themselves, as the JAX battery does
+    errors = {k: v["error"] for k, v in checks_.items()
+              if isinstance(v, dict) and "error" in v}
+    if "error" in checks_:
+        errors["sd_stack"] = checks_["error"]
+    non_finite = _non_finite(verdict)
+    checks = dict(
+        no_errors=not errors, finite=not non_finite,
+        must_pass=all(checks_.get(k, {}).get("ok") for k in CERTIFY_MUST_PASS),
+        every_check_ran=set(checks_) >= {
+            "alpha_schedule", "tokenizer_goldens", "vae_roundtrip",
+            "controlnet_nonzero", "controlnet_scale_response",
+            "invert_denoise_roundtrip", "cross_view_edit", "sam", "mask_iou",
+            "dino"} and not verdict["skipped"],
+        exit_code=rc == (0 if verdict["all_ok"] else 1),
+        launch_counts=counts == expected,
+        kernels_vs_plain=all(w.get("calls") and attn_ok(w)
+                             for w in in_situ.values()))
+    rec = dict(phase="certify", card=card, steps=CERTIFY_STEPS, exit_code=rc,
+               verdict=verdict, errors=errors, non_finite=non_finite,
+               random_weights_fail_by_design={
+                   k: checks_.get(k, {}).get("ok") for k in CERTIFY_RANDOM_FAILS},
+               check_seconds=seconds, held_seconds=held_seconds,
+               in_situ=in_situ, attn_tol=dict(scaled=ATTN_SCALED_TOL,
+                                              rel_rms=ATTN_REL_RMS_TOL),
+               controlnet_write_s=cn_s, run_s=run_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+               launches=counts, expected_launches=expected, checks=checks,
+               seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"certify failed {bad}: errors {errors}, "
+                             f"non-finite {non_finite}")
     return rec
 
 
@@ -2384,33 +3020,49 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6a. SD-1.5 weights through a diffusers layout on disk, and
-    # 6. the main path on them
+    # 6. the main path on them; the files are kept for phase 13
     weights_root = tempfile.mkdtemp(prefix="gaussctrl_sd15_")
+    seg_root = tempfile.mkdtemp(prefix="gaussctrl_seg_")
     try:
         weights, ckpt_dirs, written = check_weights(weights_root)
         mp, pipe = main_path(args, card, ckpt_dirs, written)
+        del written
+
+        # 7. the composed cross-view route against the fused one
+        composed = check_composed(pipe, args.steps, REPS // 4)
+
+        # 7b. the masked edit: SAM ViT-H, GroundingDINO Swin-B, CLIP ViT-L/14
+        masked, seg_files = check_masked_edit(pipe, card, seg_root)
+        del pipe
+        torch.cuda.empty_cache()
+
+        # 13. the real-weight battery on the files of phases 6a and 7b
+        certify = check_certify(card, ckpt_dirs, seg_files, weights_root)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(weights_root, ignore_errors=True)
-    del written
-
-    # 7. the composed cross-view route against the fused one
-    composed = check_composed(pipe, args.steps, REPS // 4)
-
-    # 7b. the masked edit: SAM ViT-H, GroundingDINO Swin-B, CLIP ViT-L/14
-    masked = check_masked_edit(pipe, card)
-    del pipe
-    torch.cuda.empty_cache()
+        shutil.rmtree(seg_root, ignore_errors=True)
 
     # 8. from-scratch pre-training with densification at full width
     pretrain = check_pretrain()
     torch.cuda.empty_cache()
 
-    # 9. the pre-training CLI on the example scene
+    # 9. the pre-training CLI on the example scene, and on its checkpoint
+    # and the smoke scene 10. render, 11. viewer, 12. export
     splat_root = tempfile.mkdtemp(prefix="gaussctrl_splat_")
     try:
         splat_train = check_splat_train(splat_root)
+        from gaussctrl_tpu_torch.core.ckpt import load_scene_npz, save_pytree
+        smoke_npz = os.path.join(splat_root, "smoke_scene.npz")
+        save_pytree(smoke_npz, smoke_scene(GAUSSIANS, DEVICE))
+        render = check_render(card, splat_train["ckpt"], smoke_npz,
+                              splat_root, args.out)
+        viewer = check_viewer(card, load_scene_npz(smoke_npz, device=DEVICE))
+        export = check_export(card, {"example_trained": splat_train["ckpt"],
+                                     "smoke": smoke_npz}, splat_root)
     finally:
         shutil.rmtree(splat_root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     # per-kernel summary: K2/K3/K5 times are per DDIM step of the main path
     # (each level's time times its self-attention layers in UNet + ControlNet)
@@ -2523,6 +3175,13 @@ def main() -> int:
              bound_ms=vae["bound_ms"], bound_by=vae["bound_by"],
              library_ms=vae["library_ms"]),
     ]
+    # launches on this slice's paths: the render CLI's calls, the viewer's
+    # requests and the battery
+    for k in kernels:
+        k["render_launches"] = sum(c["launches"][k["name"]]
+                                   for c in render["calls"].values())
+        k["viewer_launches"] = viewer["launches"][k["name"]]
+        k["certify_launches"] = certify["launches"][k["name"]]
     total_s = time.perf_counter() - t_start
     emit(dict(phase="done", card=card, total_s=total_s))
     if args.out:
@@ -2532,8 +3191,9 @@ def main() -> int:
                            k5=k5, k6=k6, sass=sass, train=train,
                            reopt_split=split, weights=weights,
                            main_path=mp, composed=composed,
-                           masked_edit=masked,
+                           masked_edit=masked, certify=certify,
                            pretrain=pretrain, splat_train=splat_train,
+                           render=render, viewer=viewer, export=export,
                            kernels=kernels, total_s=total_s),
                       f, indent=1)
     emit({"kernels": kernels})

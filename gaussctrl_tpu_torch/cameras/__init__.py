@@ -1,1 +1,2 @@
-from gaussctrl_tpu_torch.cameras.camera import Cameras, make_cameras, view_matrix  # noqa: F401
+from gaussctrl_tpu_torch.cameras.camera import (Cameras, fov, make_cameras,  # noqa: F401
+                                                projection_matrix, view_matrix)

@@ -3,7 +3,8 @@
 Counterpart of `gaussctrl_tpu/cameras/camera.py`: camera-to-world poses in
 the nerfstudio/OpenGL convention (+x right, +y up, -z forward); the splatting
 convention (+z forward, +y down) comes from the diag(1,-1,-1) column flip and
-the world→camera matrix from the analytic inverse.
+the world→camera matrix from the analytic inverse. `projection_matrix` and
+`fov` are splatfacto's helpers.
 """
 
 from __future__ import annotations
@@ -54,6 +55,35 @@ def view_matrix(c2w: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=c2w.dtype,
                           device=c2w.device)
     return torch.cat([top, bottom], dim=0)
+
+
+def projection_matrix(znear: float, zfar: float, fovx, fovy,
+                      dtype=torch.float32) -> torch.Tensor:
+    """OpenGL-style perspective projection [4,4] (nerfstudio splatfacto's
+    helper), the tangents taken in `dtype`; the projection itself uses
+    fx/fy directly."""
+    t = znear * torch.tan(0.5 * torch.as_tensor(fovy, dtype=dtype))
+    b = -t
+    r = znear * torch.tan(0.5 * torch.as_tensor(fovx, dtype=dtype))
+    l = -r
+    n, f = znear, zfar
+
+    def c(x):
+        return torch.as_tensor(x, dtype=dtype)
+
+    return torch.stack([
+        torch.stack([2 * n / (r - l), c(0.0), (r + l) / (r - l), c(0.0)]),
+        torch.stack([c(0.0), 2 * n / (t - b), (t + b) / (t - b), c(0.0)]),
+        torch.stack([c(0.0), c(0.0), c((f + n) / (f - n)),
+                     c(-1.0 * f * n / (f - n))]),
+        torch.stack([c(0.0), c(0.0), c(1.0), c(0.0)])])
+
+
+def fov(cameras: Cameras):
+    """Per-camera (fovx, fovy) [N] in radians."""
+    fovx = 2.0 * torch.arctan(cameras.width / (2.0 * cameras.fx))
+    fovy = 2.0 * torch.arctan(cameras.height / (2.0 * cameras.fy))
+    return fovx, fovy
 
 
 def make_cameras(c2w: np.ndarray, fx, fy, cx, cy, width: int, height: int,

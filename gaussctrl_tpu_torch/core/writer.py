@@ -1,17 +1,23 @@
-"""Metrics logging.
+"""Metrics logging and profiler traces.
 
 Counterpart of `gaussctrl_tpu/core/writer.py`: an append-only JSONL event
 log (`events.jsonl`, one `{"step", "group", "t", **scalars}` record a line)
-with a console echo every `echo_every` steps. The JAX package's section
-timers and profiler trace context have no counterpart here.
+with a console echo every `echo_every` steps, and `cuda_trace`, the
+counterpart of its `tpu_trace`: a `torch.profiler` trace written as a
+Chrome trace. The JAX package's section timers have no counterpart: nothing
+calls them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 
 class MetricsWriter:
@@ -42,3 +48,27 @@ class MetricsWriter:
     def close(self):
         if self.path is not None:
             self._fh.close()
+
+
+@contextlib.contextmanager
+def cuda_trace(log_dir: str, enabled: bool = True):
+    """Trace the block with `torch.profiler` (the counterpart of the JAX
+    package's `tpu_trace`): CPU activity, and the card's kernels and copies
+    where torch sees a card. Yields the profiler (None when disabled); on
+    exit the trace is written to `<log_dir>/trace-<time>-<pid>.json`, which
+    chrome://tracing and Perfetto read. With `enabled=False` nothing is
+    traced or written."""
+    if not enabled:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    stamp = time.strftime("%Y%m%d-%H%M%S")
+    prof.export_chrome_trace(
+        str(Path(log_dir) / f"trace-{stamp}-{os.getpid()}.json"))

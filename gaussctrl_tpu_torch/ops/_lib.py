@@ -8,7 +8,9 @@ beyond nvcc's defaults is needed. `--threads 0` lets that call compile the
 sources in parallel, one thread per CPU. The build runs at first use and is
 keyed by a hash of the sources (`*.cu` and the headers `*.cuh`) and flags,
 so a changed source rebuilds and an unchanged one is reused. The output
-directory (`gaussctrl_tpu_torch/_build/`) is git-ignored.
+directory (`gaussctrl_tpu_torch/_build/`) is git-ignored. The first load
+holds a lock, so that threads (the viewer renders on one per request) build
+and bind the library once.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,6 +50,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_load_lock = threading.Lock()
 build_seconds = None   # wall time of the last build in this process (None: reused)
 build_log = ""         # nvcc/ptxas report of that build (registers, spills)
 
@@ -76,7 +80,7 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
     t0 = time.perf_counter()
@@ -93,13 +97,16 @@ def build() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _load_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

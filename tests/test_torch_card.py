@@ -412,6 +412,78 @@ def test_k4_xy_rows_and_densify_decisions_on_a_pretraining_scene_on_card(size):
     assert rec["candidates"] > 0 and rec["disagree_outside"] == 0, rec
 
 
+@pytest.mark.cuda
+def test_blend_kernels_match_plain_on_an_equirect_strip_on_card():
+    """K1 and K4 on the strip of a 1024×512 equirectangular frame (32
+    strips: a 45×1532 pinhole, 3×96 tiles) of the smoke scene, the shape
+    every strip of `render_pano` gives K1 there."""
+    from gaussctrl_tpu_torch.cameras import stereo
+    from gaussctrl_tpu_torch.cameras.camera import make_cameras
+    dev = _card()
+    cs = _chip_smoke()
+    fx, fy, w, h = stereo.strip_size(1024, 512)
+    assert (w, h) == (45, 1532)
+    c2w = stereo._strip_camera(np.eye(4)[:3] + [[0, 0, 0, 0], [0, 0, 0, 0],
+                                                [0, 0, 0, 3.5]],
+                               0.1, 0.0, 0.063)
+    cams = make_cameras(c2w[None], fx, fy, w / 2, h / 2, w, h, dev)
+    args, _ = cs.splat_inputs(cs.smoke_scene(200_000, dev), cams)
+    assert args[-2:] == (3, 96)
+    assert max(_check_blend_kernels(args)) > 0
+
+
+@pytest.mark.cuda
+def test_k1_matches_plain_on_every_view_of_the_example_scene_on_card():
+    """K1 against its plain version on each of data/example_scene's 12
+    views (200×200, partial tiles) of a scene seeded from its points, as
+    `cli.render dataset` renders them: within chip_smoke's K1_TOL."""
+    from gaussctrl_tpu_torch.data.datamanager import (DataManager,
+                                                      DataManagerConfig)
+    from gaussctrl_tpu_torch.data.ply import read_point_cloud
+    from gaussctrl_tpu_torch.splat.scene import from_points
+    dev = _card()
+    cs = _chip_smoke()
+    data = os.path.join(os.path.dirname(__file__), "..", "data",
+                        "example_scene")
+    cfg = DataManagerConfig(load_all=True)
+    cfg.dataparser.data = data
+    cams = DataManager(cfg).cameras.to(dev)
+    pts, cols = read_point_cloud(os.path.join(data, "points3d.ply"))
+    scene = from_points(pts, cols, 3, init_opacity=0.5, device=dev)
+    assert len(cams) == 12
+    for i in range(len(cams)):
+        args, _ = cs.splat_inputs(scene, cams[i:i + 1])
+        tiles, alpha = sb.blend(*args)
+        ref_tiles, ref_alpha = sb.blend_plain(*args)
+        assert float((tiles - ref_tiles).abs().max()) <= cs.K1_TOL, i
+        assert float((alpha - ref_alpha).abs().max()) <= cs.K1_TOL, i
+
+
+@pytest.mark.cuda
+def test_library_first_load_from_two_threads_on_card(tmp_path, monkeypatch):
+    """Two threads that ask for the kernel library at once, with nothing
+    built: one nvcc build, one library, both threads get it."""
+    import threading
+    _card()
+    monkeypatch.setattr(_lib, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_lib, "_lib", None)
+    go = threading.Barrier(2)
+    got = [None, None]
+
+    def load(i):
+        go.wait(timeout=60)
+        got[i] = _lib.library()
+
+    threads = [threading.Thread(target=load, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        assert not t.is_alive()
+    assert got[0] is not None and got[0] is got[1]
+    assert sorted(os.listdir(tmp_path)) == [os.path.basename(_lib.library_path())]
+
+
 # ---------------------------------------------------------------------------
 # the segmentation stack (plain PyTorch, float32 with TF32 off): the card
 # against the CPU at tiny configs, one set of random weights on both

@@ -277,15 +277,24 @@ def test_cli_text_masks_match_jax(masked_runs):
         assert np.abs(a - b).max() <= 1, f.name
 
 
-_ONLY_JAX = {"train": set(), "splat_train": {"--trainer.fullres_blend"}}
-_ONLY_PORT = {"train": {"--device"}, "splat_train": {"--device"}}
+_RENDER_SUBCOMMANDS = ("dataset", "camera-path", "interpolate", "spiral")
+_ONLY_JAX = {"train": set(), "splat_train": {"--trainer.fullres_blend"},
+             "render": set(), "export": set(), "viewer": set(),
+             "certify": set()}
+_ONLY_PORT = {"train": {"--device"}, "splat_train": {"--device"},
+              "render": {f"{c} --device" for c in _RENDER_SUBCOMMANDS},
+              "export": {"--device"}, "viewer": {"--device"},
+              "certify": {"--device"}}
+_RASTER = {"--raster.blend_impl", "--raster.bwd_write"}
 
 
-@pytest.mark.parametrize("cli", ["train", "splat_train"])
+@pytest.mark.parametrize("cli", ["train", "splat_train", "render", "export",
+                                 "viewer", "certify"])
 def test_cli_option_sets_match_jax(cli):
-    """The port's CLI takes the JAX CLI's options, apart from an explicit
-    list: the JAX pre-training CLI's --trainer.fullres_blend (the port
-    blends with K1/K4 at every resolution) and the port's --device."""
+    """The port's CLI takes the JAX CLI's options (each subcommand's, as
+    "<subcommand> <option>"), apart from an explicit list: the JAX
+    pre-training CLI's --trainer.fullres_blend (the port blends with K1/K4
+    at every resolution) and the port's --device."""
     import argparse
     import importlib
 
@@ -293,8 +302,9 @@ def test_cli_option_sets_match_jax(cli):
         pass
 
     def parser(mod):
-        """The parser `mod.main` builds (the JAX pre-training CLI builds it
-        inside main), caught at its parse_args."""
+        """The parser `mod.main` builds (the JAX pre-training, export,
+        viewer and certify CLIs build it inside main), caught at its
+        parse_args."""
         m = importlib.import_module(mod)
         if hasattr(m, "build_parser"):
             return m.build_parser()
@@ -309,15 +319,24 @@ def test_cli_option_sets_match_jax(cli):
                 m.main([])
         return built.value.args[0]
 
-    def options(mod):
-        p = parser(mod)
-        return {o for a in p._actions for o in a.option_strings} - {"-h", "--help"}
+    def options(p, prefix=""):
+        out = set()
+        for a in p._actions:
+            if isinstance(a, argparse._SubParsersAction):
+                for name, sub in a.choices.items():
+                    out |= options(sub, f"{prefix}{name} ")
+            out |= {prefix + o for o in a.option_strings
+                    if o not in ("-h", "--help")}
+        return out
 
-    jopts = options(f"gaussctrl_tpu.cli.{cli}")
-    topts = options(f"gaussctrl_tpu_torch.cli.{cli}")
+    jopts = options(parser(f"gaussctrl_tpu.cli.{cli}"))
+    topts = options(parser(f"gaussctrl_tpu_torch.cli.{cli}"))
     assert jopts - topts == _ONLY_JAX[cli]
     assert topts - jopts == _ONLY_PORT[cli]
-    assert {"--raster.blend_impl", "--raster.bwd_write"} <= topts
+    if cli in ("train", "splat_train"):
+        assert _RASTER <= topts
+    if cli == "render":
+        assert {o.split()[0] for o in topts} == set(_RENDER_SUBCOMMANDS)
 
 
 def test_raster_choices_accepted_and_ignored():

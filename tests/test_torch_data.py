@@ -11,6 +11,7 @@ import json
 import os
 import shutil
 import time
+import warnings
 
 import jax
 import numpy as np
@@ -158,6 +159,31 @@ def _jax_native_after_build(timeout_s: float = 120.0) -> bool:
         time.sleep(0.5)
     jnative._tried, jnative._lib = False, None
     return jnative.available()
+
+
+def pin_knn_branch(monkeypatch, request, branch: str) -> str:
+    """Put both packages' native helpers on one branch for a test and
+    return the branch they are on. The two kNN branches of `from_points`
+    compute different things (ROADMAP F9), so a parity case must never
+    compare one package's native branch with the other's exact one.
+
+    "exact": both packages' `available()` pinned to False (the exact O(N²)
+    kNN, the cv2 undistortion). "native": both built, the JAX build settled
+    by `_jax_native_after_build`; where either cannot be built, both are
+    pinned to the exact branch instead, so that the case still runs, and a
+    warning says so. The branch used is recorded in the test's report as
+    the user property "knn_branch"."""
+    used = "exact"
+    if branch == "native" and tnative.available() and _jax_native_after_build():
+        used = "native"
+    else:
+        monkeypatch.setattr(jnative, "available", lambda: False)
+        monkeypatch.setattr(tnative, "available", lambda: False)
+        if branch == "native":
+            warnings.warn("native kNN helpers unavailable: both packages ran "
+                          "the exact branch in place of the native one")
+    request.node.user_properties.append(("knn_branch", used))
+    return used
 
 
 @pytest.mark.parametrize("op", ["undistort", "resize", "knn"])

@@ -34,7 +34,11 @@ def test_package_imports_no_jax_or_reference_package():
     for m in ("gaussctrl_tpu_torch.ops.flash_attention",
               "gaussctrl_tpu_torch.seg.sam", "gaussctrl_tpu_torch.seg.dino",
               "gaussctrl_tpu_torch.metrics.clip_metrics",
-              "gaussctrl_tpu_torch.cli.eval"):
+              "gaussctrl_tpu_torch.cli.eval", "gaussctrl_tpu_torch.cli.render",
+              "gaussctrl_tpu_torch.cli.export", "gaussctrl_tpu_torch.cli.viewer",
+              "gaussctrl_tpu_torch.cli.certify", "gaussctrl_tpu_torch.certify",
+              "gaussctrl_tpu_torch.cameras.stereo",
+              "gaussctrl_tpu_torch.viewer.server"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -75,6 +79,35 @@ def test_pipeline_default_device_raises_without_card():
     from gaussctrl_tpu_torch.diffusion.sample import SDModels
     with pytest.raises(RuntimeError, match="CUDA"):
         SDModels.create(SDConfig.tiny())
+
+
+@pytest.mark.parametrize("argv", [
+    ["render", "dataset", "--data", "data/example_scene"],
+    ["render", "camera-path", "--camera-path-filename", "path.json"],
+    ["render", "interpolate", "--data", "data/example_scene"],
+    ["render", "spiral", "--data", "data/example_scene"],
+    ["export", "--output", "scene.ply"],
+    ["viewer"],
+    ["certify"],
+], ids=lambda a: "-".join(a[:2]) if a[0] == "render" else a[0])
+def test_new_clis_ask_for_the_card(argv, tmp_path):
+    """Called without --device, each of the render, export, viewer and
+    certify CLIs asks for the card and raises here before it reads or
+    writes anything (its checkpoint does not even exist)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    import importlib
+    mod = importlib.import_module(f"gaussctrl_tpu_torch.cli.{argv[0]}")
+    rest = argv[1:]
+    if argv[0] == "certify":
+        rest += ["--out", str(tmp_path / "v.json")]
+    else:
+        rest += ["--load-checkpoint", str(tmp_path / "missing.npz")]
+    if argv[0] == "render":
+        rest += ["--output-path", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(rest)
+    assert list(tmp_path.iterdir()) == []
 
 
 @pytest.mark.parametrize("which", ["flash_attention_t", "cross_view_attention",
@@ -139,7 +172,11 @@ def test_modules_and_chip_smoke_import_with_jax_and_safetensors_blocked(tmp_path
               "gaussctrl_tpu_torch.seg.dino",
               "gaussctrl_tpu_torch.seg.dino_weights",
               "gaussctrl_tpu_torch.metrics.clip_metrics",
-              "gaussctrl_tpu_torch.cli.eval"):
+              "gaussctrl_tpu_torch.cli.eval", "gaussctrl_tpu_torch.cli.render",
+              "gaussctrl_tpu_torch.cli.export", "gaussctrl_tpu_torch.cli.viewer",
+              "gaussctrl_tpu_torch.cli.certify", "gaussctrl_tpu_torch.certify",
+              "gaussctrl_tpu_torch.cameras.stereo",
+              "gaussctrl_tpu_torch.viewer.server"):
         assert m in mods, m
     path = tmp_path / "t.safetensors"
     code = ("import importlib, sys\n"

@@ -39,6 +39,7 @@ from gaussctrl_tpu_torch.splat.rasterize import RasterConfig
 from gaussctrl_tpu_torch.splat.render import render_camera, render_rgbd
 from gaussctrl_tpu_torch.splat.scene import GaussianScene, from_points
 
+from test_torch_data import pin_knn_branch
 from test_torch_pipeline import _ring_c2ws
 from test_torch_splat import _random_scene_np
 
@@ -80,11 +81,14 @@ def _cams(size=SIZE):
             make_cameras(c2ws, size, size, size / 2, size / 2, size, size))
 
 
+@pytest.mark.parametrize("branch", ["exact", "native"])
 @pytest.mark.parametrize("n", [50, 400])
-def test_from_points_matches_jax(n):
-    """Seed scenes from one point cloud: scales from the 3-NN mean distance
-    (both packages' native helper or the exact O(N²) search: rtol 1e-5),
-    the other fields exactly."""
+def test_from_points_matches_jax(n, branch, monkeypatch, request):
+    """Seed scenes from one point cloud, both packages on one kNN branch
+    (`pin_knn_branch`): scales from the 3-NN distances at rtol 1e-5 (the
+    native helper's mean distance, or the exact search's root mean square
+    distance: ROADMAP F9), the other fields exactly."""
+    pin_knn_branch(monkeypatch, request, branch)
     rng = np.random.default_rng(n)
     pts = rng.normal(size=(n, 3)).astype(np.float32)
     cols = rng.uniform(size=(n, 3)).astype(np.float32)
@@ -403,9 +407,11 @@ def _refines(log):
             if "n_split" in m]
 
 
-def test_pretrain_short_loop_matches_jax():
+@pytest.mark.parametrize("branch", ["exact", "native"])
+def test_pretrain_short_loop_matches_jax(branch, monkeypatch, request):
     """A tests/test_densify.py-sized loop from one seed scene (60 seed
-    points, 4 views trained at 1/4 of 48×48, 25 steps) with refines at
+    points, both packages seeded on one kNN branch by `pin_knn_branch`, 4
+    views trained at 1/4 of 48×48, 25 steps) with refines at
     steps 16 and 24 (warmup 5, refine_every 8), fed the JAX package's
     backgrounds and offsets. The first refine starts from identical state
     and its split, duplicate, cull and birth counts must equal the JAX
@@ -416,6 +422,7 @@ def test_pretrain_short_loop_matches_jax():
     gradient may take the other sign, a full ±lr step), so its counts get a
     slack of 2 gaussians each, and the final gaussian count the same; the
     final loss agrees to 5%."""
+    pin_knn_branch(monkeypatch, request, branch)
     (jscene_, jm), (tscene_, tm), jlog, tlog = _both_loops(
         dict(capacity_mult=2.0, sh_degree_interval=1000, eval_every=0),
         dict(warmup=5, refine_every=8, stop_at=35, reset_alpha_every=1000,

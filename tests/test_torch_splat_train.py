@@ -30,12 +30,15 @@ def _run_cli(main, out, extra):
     return run
 
 
-def test_cli_splat_train_matches_jax_cli(tmp_path):
+def test_cli_splat_train_matches_jax_cli(tmp_path, monkeypatch, request):
     """Both CLIs for 3 steps on data/example_scene (12 views, 2,600 seed
-    points, 200×200, trained at 50×50): the same artifacts, the same
-    dataparser transform, checkpoints each package's `load_scene_npz`
-    reads with the same gaussian count; then the port resumes its own
-    checkpoint for 2 more steps."""
+    points, 200×200, trained at 50×50), both seeding on one kNN branch
+    (`pin_knn_branch`: the native one where both build): the same
+    artifacts, the same dataparser transform, checkpoints each package's
+    `load_scene_npz` reads with the same gaussian count; then the port
+    resumes its own checkpoint for 2 more steps."""
+    from test_torch_data import pin_knn_branch
+    pin_knn_branch(monkeypatch, request, "native")
     from gaussctrl_tpu.cli import splat_train as jcli
     from gaussctrl_tpu.core.ckpt import load_scene_npz as j_load
     from gaussctrl_tpu_torch.cli import splat_train as tcli
