@@ -62,6 +62,21 @@ Phases, each printing one JSON line with its wall time:
                   on its inputs, the two steps' outputs held to twice the
                   gap bf16 rounding alone sets there, and both routes timed
                   per token level;
+  7a. mesh       the device mesh (core/mesh.py): entry() (one cross-view
+                  CFG denoise step at SD-1.5 widths on zero weights) with
+                  exact K3/K5 launches and its ms; run() with
+                  mesh=make_mesh() (NCCL, a world of one) on the main path's
+                  weights, chunk_size 0, 3 DDIM and 10 re-optimisation
+                  steps, bit for bit against the same run() without a
+                  mesh, exact K1-K6 launches, views/s of both, and a
+                  sharded checkpoint round trip (torch.distributed.
+                  checkpoint) bit for bit; then two spawned ranks on the one
+                  card over gloo: the view-sharded edit of those inputs (all
+                  at once and chunked) against one rank's, held to twice
+                  the gap batch composition sets, and the gaussian-sharded
+                  re-optimisation step of the smoke scene at 512x512
+                  against the unsharded one (loss rtol 1e-5, means rtol
+                  1e-4 / atol 1e-6), with both steps' ms;
   7b. masked_edit  text-prompted object masks at full width: random SAM
                   ViT-H, GroundingDINO Swin-B and CLIP ViT-L/14 (with the
                   SD-1.5 text tower) written in the reference layouts
@@ -571,6 +586,48 @@ def k4_held(bwd_args):
     rows, g_bg = sb.blend_bwd(*bwd_args)
     ref_rows, ref_bg = sb.blend_bwd_plain(*bwd_args)
     return rows, g_bg, k4_errors(rows[:used], g_bg, ref_rows[:used], ref_bg)
+
+
+def splat_holds(first: int) -> tuple:
+    """(patch entries, worst errors by kernel) that hold the first `first`
+    calls of K1 and of K4, where the rasterizer looks them up, against
+    their plain versions on the same inputs on the card (`k1_held`,
+    `k4_held`)."""
+    import importlib
+    rast = importlib.import_module("gaussctrl_tpu_torch.splat.rasterize")
+    in_situ = {"splat_blend_fwd": {"calls": 0}, "splat_blend_bwd": {"calls": 0}}
+    fwd, bwd = rast.blend, rast.blend_bwd
+
+    def blend(*a, **kw):
+        w = in_situ["splat_blend_fwd"]
+        if w["calls"] >= first:
+            return fwd(*a, **kw)
+        out, err = k1_held(a, DEVICE, **kw)
+        w["calls"] += 1
+        w["max_abs_err"] = max(w.get("max_abs_err", 0.0), err)
+        return out
+
+    def blend_bwd(*a):
+        w = in_situ["splat_blend_bwd"]
+        if w["calls"] >= first:
+            return bwd(*a)
+        rows, g_bg, errs = k4_held(a)
+        w["calls"] += 1
+        for k, v in errs.items():
+            w[k] = max(w.get(k, 0.0), v)
+        return rows, g_bg
+
+    return [(rast, "blend", blend), (rast, "blend_bwd", blend_bwd)], in_situ
+
+
+def splat_ok(in_situ: dict) -> bool:
+    """K1 and K4 were each held at least once (`splat_holds`), within
+    K1_TOL and (per row group and g_bg) K4_SCALED_TOL."""
+    k1, k4 = in_situ["splat_blend_fwd"], in_situ["splat_blend_bwd"]
+    return (k1["calls"] > 0 and k1["max_abs_err"] <= K1_TOL
+            and k4["calls"] > 0
+            and all(v <= K4_SCALED_TOL for k, v in k4.items()
+                    if k not in ("calls", "max_abs_err")))
 
 
 def check_k4(scene, cams, reps):
@@ -1191,7 +1248,7 @@ def expected_launches(pipe, layers, V: int, ddim_steps: int, reopt_steps: int):
     # the reference's draw may repeat a view (inclusive randint), so the
     # chunks are counted from the views that are not references
     others = [i for i in range(V) if i not in pipe.ref_indices]
-    n_chunks = -(-len(others) // cfg.chunk_size)
+    n_chunks = 1 if cfg.chunk_size <= 0 else -(-len(others) // cfg.chunk_size)
     # UNet + ControlNet forwards of the inversion and of the edit
     inv_fwd = ddim_steps * (1 if cfg.invert_batch <= 0
                             else -(-V // cfg.invert_batch))
@@ -1217,6 +1274,32 @@ def expected_launches(pipe, layers, V: int, ddim_steps: int, reopt_steps: int):
     return expected, n_chunks
 
 
+def _timed_run(pipe) -> tuple:
+    """`pipe.run()` with each stage timed to its end on the card: (metrics,
+    {stage: seconds}, launch counts)."""
+    import torch
+    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
+    ends = {}
+    for stage in ("render_reverse", "edit_images", "reoptimize"):
+        def timed(*a, _fn=getattr(pipe, stage), _name=stage, **kw):
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            ends[_name] = time.perf_counter()
+            return out
+        setattr(pipe, stage, timed)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = pipe.run()
+    counts = dict(launch_counts)
+    for stage in ("render_reverse", "edit_images", "reoptimize"):
+        delattr(pipe, stage)
+    seconds = dict(render_reverse=ends["render_reverse"] - t0,
+                   edit_images=ends["edit_images"] - ends["render_reverse"],
+                   reoptimize=ends["reoptimize"] - ends["edit_images"])
+    return metrics, seconds, counts
+
+
 def main_path(args, card, ckpt_dirs, written):
     """`GaussCtrlPipeline.run()` on the SD-1.5 weights read from the
     diffusers directories `ckpt_dirs` (phase 6a) through
@@ -1226,7 +1309,6 @@ def main_path(args, card, ckpt_dirs, written):
     import torch
     from gaussctrl_tpu_torch.diffusion.clip import CLIPTokenizer
     from gaussctrl_tpu_torch.diffusion.config import SDConfig
-    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
     from gaussctrl_tpu_torch.pipeline.gaussctrl import (GaussCtrlConfig,
                                                         GaussCtrlPipeline)
     t0 = time.perf_counter()
@@ -1259,22 +1341,10 @@ def main_path(args, card, ckpt_dirs, written):
     steps = args.reopt_steps
     expected, n_chunks = expected_launches(pipe, layers, V, args.steps, steps)
 
-    # each stage of run() is timed to its end on the card
-    ends = {}
-    for stage in ("render_reverse", "edit_images", "reoptimize"):
-        def timed(*a, _fn=getattr(pipe, stage), _name=stage, **kw):
-            out = _fn(*a, **kw)
-            torch.cuda.synchronize()
-            ends[_name] = time.perf_counter()
-            return out
-        setattr(pipe, stage, timed)
-
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t1 = time.perf_counter()
-    metrics = pipe.run()
-    counts = dict(launch_counts)
-    t2, t3, t4 = ends["render_reverse"], ends["edit_images"], ends["reoptimize"]
+    metrics, seconds, counts = _timed_run(pipe)
+    rr, ei, ro = (seconds[k] for k in ("render_reverse", "edit_images",
+                                       "reoptimize"))
     losses = metrics["loss_history"].float().cpu()
 
     s, H = pipe.sd_config.sample_size, SIZE
@@ -1291,13 +1361,13 @@ def main_path(args, card, ckpt_dirs, written):
                edit_batches=n_chunks,
                chunk_size=cfg.chunk_size, setup_s=setup_s,
                reopt_steps=steps,
-               render_reverse_s=t2 - t1, edit_images_s=t3 - t2,
-               reoptimize_s=t4 - t3, reopt_s_per_step=(t4 - t3) / max(steps, 1),
+               render_reverse_s=rr, edit_images_s=ei,
+               reoptimize_s=ro, reopt_s_per_step=ro / max(steps, 1),
                reopt_loss_first10=losses[:10].tolist(),
                reopt_loss_last10=losses[-10:].tolist(),
-               render_reverse_views_per_s=V / (t2 - t1),
-               edit_images_views_per_s=V / (t3 - t2),
-               views_per_s=V / (t3 - t1), run_s=t4 - t1,
+               render_reverse_views_per_s=V / rr,
+               edit_images_views_per_s=V / ei,
+               views_per_s=V / (rr + ei), run_s=rr + ei + ro,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
                self_attention_layers={k: len(v) for k, v in layers.items()},
                launches=counts, expected_launches=expected, finite=finite,
@@ -1438,6 +1508,344 @@ def check_composed(pipe, steps: int, reps: int):
             <= COMPOSED_FLOOR_RATIO * step["floor"]["rel_rms_err"]):
         raise AssertionError(f"the composed route's edit step is further from "
                              f"the fused one than bf16 rounding sets: {step}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7a: the device mesh: entry(), a world of one over NCCL, two ranks on
+# the one card over gloo
+# ---------------------------------------------------------------------------
+
+# the mesh runs' depth: DDIM steps and re-optimisation steps of each run()
+MESH_STEPS, MESH_REOPT_STEPS = 3, 10
+# the edit of two ranks against one rank's: random SD-1.5 weights amplify the
+# rounding of batched layers, and a rank batches 6 views where one rank
+# batches 8, so its relative RMS gap is held to this times the gap that
+# batch composition alone sets on one rank (the chunked edit, chunk 2,
+# against the all-at-once edit: the same function in batches of 6 views)
+MESH_FLOOR_RATIO = 2.0
+# the gaussian-sharded step against the unsharded one: the JAX dry run's
+# tolerances (loss rtol; rtol, atol of every leaf, as of its means)
+MESH_LOSS_RTOL, MESH_LEAF_RTOL, MESH_LEAF_ATOL = 1e-5, 1e-4, 1e-6
+MESH_STEP_REPS = 5
+# K1 and K4 calls held in situ in the world-of-one run
+MESH_SPLAT_HELD = 2
+
+
+def entry_expected() -> dict:
+    """The launches of one `entry()` step: one reference view, so at the
+    fused levels one K3 a self-attention layer; at the 64-token level the
+    UNet's self branch (K2) and one reference call a layer; one text
+    cross-attention a transformer block."""
+    from gaussctrl_tpu_torch.ops import launch_counts
+    expected = dict.fromkeys(launch_counts, 0)
+    for t, c in LEVELS:
+        n_unet, n_cn = LAYERS_PER_LEVEL[t]
+        expected[std_kernel(c // HEADS, TEXT_TOKENS)] += n_unet + n_cn
+        if str(t) in fused_levels():
+            expected["cross_view_attention"] += n_unet + n_cn
+        else:
+            expected["flash_attention_t"] += n_unet
+            expected[std_kernel(c // HEADS, t)] += n_unet + n_cn
+    return expected
+
+
+def mesh_held_ok(in_situ: dict) -> bool:
+    """Each of K2/K3/K5/K6 had held calls within the attention tolerances,
+    and K1/K4 passed `splat_ok`."""
+    return splat_ok(in_situ["splat"]) and all(
+        w.get("calls") and attn_ok(w) for w in in_situ["attention"].values())
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _sharded_step_inputs(target):
+    """The gaussian-sharded step's inputs: the smoke scene on the card, the
+    first orbit view at SIZE and its target, a seeded background."""
+    import torch
+    cams = orbit_cameras(8, SIZE, DEVICE)
+    bg = torch.rand(3, generator=torch.Generator(device=DEVICE).manual_seed(5),
+                    device=DEVICE)
+    kw = dict(c2w=cams.c2w[0], fx=cams.fx[0], fy=cams.fy[0], cx=cams.cx[0],
+              cy=cams.cy[0], gt_image=target.to(DEVICE, torch.float32),
+              background=bg, width=SIZE, height=SIZE)
+    return smoke_scene(GAUSSIANS, DEVICE), kw
+
+
+def mesh_rank(art_path: str, cfg_fields: dict) -> dict:
+    """One of two ranks on the one card (gloo, CUDA tensors): the
+    view-sharded edit of the world-of-one run's inputs, all at once and in
+    chunks, then once more all at once with K2/K3/K5/K6 held against their
+    plain versions on this rank's inputs (untimed); then a gaussian-sharded
+    re-optimisation step of the smoke scene at SIZE, with K1 and K4 held,
+    against the unsharded one on every leaf, both from the same start, and
+    each timed over MESH_STEP_REPS more steps (both ranks share the
+    card)."""
+    import torch
+    from gaussctrl_tpu_torch.core.mesh import gather_rows, make_mesh
+    from gaussctrl_tpu_torch.diffusion.config import SDConfig
+    from gaussctrl_tpu_torch.pipeline.gaussctrl import (GaussCtrlConfig,
+                                                        GaussCtrlPipeline)
+    from gaussctrl_tpu_torch.splat.trainer import (make_optimizer, shard_scene,
+                                                   train_step, trainable)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(DEVICE)
+    art = torch.load(art_path)
+    cfg = GaussCtrlConfig(**cfg_fields)
+    pipe = GaussCtrlPipeline(cfg, smoke_scene(8, DEVICE),
+                             orbit_cameras(len(art["z_T"]), SIZE, DEVICE),
+                             sd_config=SDConfig.sd15(), dtype=torch.bfloat16,
+                             device=DEVICE, mesh=mesh)
+    for k in ("unedited", "depths", "disparity", "z_T", "masks"):
+        setattr(pipe, k, art[k].to(DEVICE))
+    out = {}
+    # the first edit of a fresh process also warms the card up: timed
+    # apart, then each mode timed warm
+    for name, chunk in (("first_edit", 0), ("chunk2", 2), ("chunk0", 0)):
+        pipe.config.chunk_size = chunk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.edit_images()
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"edited_{name}"] = pipe.edited.cpu()
+    torch.cuda.empty_cache()
+    holds, attn_situ = attention_holds(CERTIFY_HELD_PER_SHAPE)
+    with _patched(holds):
+        pipe.edit_images()
+    out["held_edit_bit_equal"] = bool(torch.equal(pipe.edited.cpu(),
+                                                  out["edited_chunk0"]))
+    del pipe
+    torch.cuda.empty_cache()
+
+    scene, kw = _sharded_step_inputs(art["edited"][0])
+    local, full = trainable(shard_scene(scene, mesh)), trainable(scene)
+    opt_l, opt_f = make_optimizer(local), make_optimizer(full)
+    holds, splat_situ = splat_holds(1)
+    with _patched(holds):
+        m_s = train_step(local, opt_l, 0, mesh=mesh, **kw)
+    m_r = train_step(full, opt_f, 0, **kw)
+    leaves = {}
+    for k in TRAIN_FIELDS:
+        got = gather_rows(getattr(local, k).detach(), mesh)
+        ref = getattr(full, k).detach()
+        leaves[k] = dict(
+            max_abs_diff=float((got - ref).abs().max()),
+            bit_equal=bool(torch.equal(got, ref)),
+            close=bool(torch.allclose(got, ref, rtol=MESH_LEAF_RTOL,
+                                      atol=MESH_LEAF_ATOL)),
+            moved=float((ref - getattr(scene, k)).abs().max()))
+    out.update(loss=float(m_s["loss"]), unsharded_loss=float(m_r["loss"]),
+               leaves=leaves,
+               in_situ=dict(attention=attn_situ, splat=splat_situ))
+    for name, sc, opt, m in (("sharded", local, opt_l, mesh),
+                             ("unsharded", full, opt_f, None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MESH_STEP_REPS):
+            train_step(sc, opt, 1 + i, mesh=m, **kw)
+        torch.cuda.synchronize()
+        out[f"{name}_step_ms"] = (time.perf_counter() - t0) / MESH_STEP_REPS * 1e3
+    out["rank"] = mesh.get_local_rank()
+    return out
+
+
+def check_mesh(pipe, card: str, root: str):
+    """Phase mesh. (a) `entry()` at SD-1.5 widths: one step, finite, exact
+    K3/K5 launches (every kernel's count from `entry_expected`) and its ms.
+    (b) `run()` with `mesh=make_mesh()` (NCCL, a world of one) on the main
+    path's weights, chunk_size 0, against the same `run()` without a mesh:
+    at a world of one the gathers are copies and each rank's batch is the
+    whole one, so every artifact and the re-optimised scene must be equal
+    bit for bit; exact K1-K6 launches; the views/s of both, run in turns
+    (without, with, with, without); one more run() with the mesh, untimed,
+    with K2/K3/K5/K6 (the first CERTIFY_HELD_PER_SHAPE calls of each
+    argument signature) and K1/K4 (the first MESH_SPLAT_HELD calls) held
+    against their plain versions on its own inputs; a sharded checkpoint
+    round trip of the scene, bit for bit, with its bytes and seconds. (c)
+    two ranks on the one card over gloo (spawned processes that load the
+    weights from the files): the view-sharded edit of (b)'s inputs against
+    (b)'s at MESH_FLOOR_RATIO times the batch-composition floor, with each
+    rank's K2/K3/K5/K6 held in situ on its refs + share, and the
+    gaussian-sharded step, with its K1/K4 held, against the unsharded one
+    on every leaf."""
+    import copy
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from gaussctrl_tpu_torch.core.ckpt import (load_checkpoint_sharded,
+                                               save_checkpoint_sharded)
+    from gaussctrl_tpu_torch.core.mesh import make_mesh, spawn_ranks
+    from gaussctrl_tpu_torch.core.writer import SectionTimers
+    from gaussctrl_tpu_torch.entry import entry
+    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
+    timers = SectionTimers()
+    rec = dict(phase="mesh", card=card)
+    checks = {}
+
+    # (a) the flagship step at SD-1.5 widths on zero weights
+    with timers.section("entry"):
+        fn, args = entry(device=DEVICE)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        counts = dict(launch_counts)
+        ms = cuda_ms(lambda: fn(*args), 5)
+        expected = entry_expected()
+        rec["entry"] = dict(ms=ms, launches=counts, expected_launches=expected,
+                            shape=list(out.shape))
+        checks["entry_finite"] = bool(torch.isfinite(out).all())
+        checks["entry_launches"] = counts == expected
+        del fn, args, out
+        torch.cuda.empty_cache()
+
+    # (b) a world of one over NCCL against no mesh
+    with timers.section("world_one"):
+        mesh = make_mesh(DEVICE)
+        cfg = dataclasses.replace(pipe.config, chunk_size=0,
+                                  num_inference_steps=MESH_STEPS,
+                                  render_rate=MESH_REOPT_STEPS)
+        V = len(pipe.cameras)
+        runs = {"single": [], "mesh": []}
+        # in turns, so that neither side alone takes the warm-up or a
+        # change in the host's load
+        for name, m in (("single", None), ("mesh", mesh), ("mesh", mesh),
+                        ("single", None)):
+            p = copy.copy(pipe)
+            p.config, p.mesh, p.masker = cfg, m, None
+            p.scene = smoke_scene(GAUSSIANS, DEVICE)
+            metrics, seconds, counts = _timed_run(p)
+            runs[name].append(dict(
+                pipe=p, metrics=metrics, seconds=seconds, counts=counts,
+                views_per_s=V / (seconds["render_reverse"]
+                                 + seconds["edit_images"])))
+        single, meshed = runs["single"][0]["pipe"], runs["mesh"][0]["pipe"]
+        arts = ("unedited", "depths", "disparity", "z_T", "masks", "edited")
+        equal = {k: bool(torch.equal(getattr(single, k), getattr(meshed, k)))
+                 for k in arts}
+        equal.update({f"scene.{k}": bool(torch.equal(getattr(single.scene, k),
+                                                     getattr(meshed.scene, k)))
+                      for k in TRAIN_FIELDS})
+        equal["loss_history"] = bool(torch.equal(
+            runs["single"][0]["metrics"]["loss_history"],
+            runs["mesh"][0]["metrics"]["loss_history"]))
+        layers = attention_layer_counts(pipe.models)
+        expected, _ = expected_launches(meshed, layers, V, MESH_STEPS,
+                                        MESH_REOPT_STEPS)
+        rec["world_one"] = dict(
+            backend=dist.get_backend(), world=mesh.size(), views=V,
+            steps=MESH_STEPS, reopt_steps=MESH_REOPT_STEPS,
+            bit_equal=equal, expected_launches=expected,
+            **{name: dict(seconds=[r["seconds"] for r in rs],
+                          views_per_s=[r["views_per_s"] for r in rs],
+                          counts=rs[0]["counts"])
+               for name, rs in runs.items()})
+        checks["world_one_bit_equal"] = all(equal.values())
+        checks["world_one_launches"] = all(r["counts"] == expected
+                                           for r in runs["mesh"])
+        checks["world_one_finite"] = bool(torch.isfinite(meshed.edited).all())
+
+        # every kernel of the meshed run held on its own inputs, untimed
+        held = copy.copy(pipe)
+        held.config, held.mesh, held.masker = cfg, mesh, None
+        held.scene = smoke_scene(GAUSSIANS, DEVICE)
+        attn, attn_situ = attention_holds(CERTIFY_HELD_PER_SHAPE)
+        splat, splat_situ = splat_holds(MESH_SPLAT_HELD)
+        with _patched(attn + splat):
+            held.run()
+        in_situ = dict(attention=attn_situ, splat=splat_situ)
+        rec["world_one"]["in_situ"] = in_situ
+        rec["world_one"]["held_run_bit_equal"] = bool(
+            torch.equal(held.edited, meshed.edited))
+        checks["world_one_kernels_vs_plain"] = mesh_held_ok(in_situ)
+        del held
+
+        # the batch-composition floor for (c): the same edit in chunks of 2
+        floor_pipe = copy.copy(single)
+        floor_pipe.config = dataclasses.replace(cfg, chunk_size=2)
+        floor_pipe.edit_images()
+
+        # the sharded checkpoint round trip (the whole scene is rank 0's)
+        ckpt_dir = os.path.join(root, "mesh_ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint_sharded(ckpt_dir, MESH_REOPT_STEPS,
+                                       meshed.scene, mesh)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_checkpoint_sharded(path, like=meshed.scene, mesh=mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        rec["checkpoint"] = dict(bytes=_dir_bytes(str(path)), save_s=save_s,
+                                 load_s=load_s, gaussians=GAUSSIANS)
+        checks["checkpoint_bit_exact"] = all(
+            torch.equal(getattr(back, k), getattr(meshed.scene, k))
+            for k in TRAIN_FIELDS)
+        dist.destroy_process_group()
+
+    # (c) two ranks on the one card over gloo, on (b)'s inputs; this
+    # process keeps only the two edits and gives its cached memory back,
+    # which the ranks' plain versions (a K3 at 4096 tokens ~7 GB) need
+    with timers.section("two_ranks"):
+        art_path = os.path.join(root, "mesh_inputs.pt")
+        torch.save({k: getattr(single, k).cpu() for k in arts}, art_path)
+        one_edit, floor_edit = single.edited, floor_pipe.edited
+        del floor_pipe, single, meshed, runs
+        torch.cuda.empty_cache()
+        cfg_fields = {f.name: getattr(cfg, f.name)
+                      for f in dataclasses.fields(cfg)}
+        ranks = spawn_ranks(mesh_rank, 2, args=(art_path, cfg_fields),
+                            device=DEVICE, backend="gloo", timeout_s=600,
+                            group_timeout_s=300)
+        floor = attn_errors(floor_edit, one_edit)
+        two = dict(floor_chunk2=floor)
+        for chunk, ref in ((0, one_edit), (2, floor_edit)):
+            two[f"chunk{chunk}"] = attn_errors(
+                ranks[0][f"edited_chunk{chunk}"].to(DEVICE), ref)
+            checks[f"two_ranks_chunk{chunk}_equal_across_ranks"] = torch.equal(
+                ranks[0][f"edited_chunk{chunk}"], ranks[1][f"edited_chunk{chunk}"])
+        checks["two_ranks_edit_repeats"] = all(
+            torch.equal(r["edited_first_edit"], r["edited_chunk0"])
+            for r in ranks)
+        # all at once: against one rank's all-at-once edit, to the floor
+        checks["two_ranks_edit_within_floor"] = (
+            two["chunk0"]["rel_rms_err"]
+            <= max(MESH_FLOOR_RATIO * floor["rel_rms_err"], 1e-3))
+        # in chunks: the same batches as one rank's chunked edit; only the
+        # VAE decode batches differ (a share of 4 views against 8)
+        checks["two_ranks_chunked_within_floor"] = (
+            two["chunk2"]["rel_rms_err"]
+            <= max(MESH_FLOOR_RATIO * floor["rel_rms_err"], 1e-3))
+        step_keys = ("loss", "unsharded_loss", "leaves", "sharded_step_ms",
+                     "unsharded_step_ms")
+        two["train_step"] = [{k: r[k] for k in step_keys} for r in ranks]
+        two["edit_s"] = [{k: r[k] for k in ("first_edit_s", "chunk0_s",
+                                            "chunk2_s")} for r in ranks]
+        two["in_situ"] = [r["in_situ"] for r in ranks]
+        two["held_edit_bit_equal"] = [r["held_edit_bit_equal"] for r in ranks]
+        checks["two_ranks_kernels_vs_plain"] = all(
+            mesh_held_ok(r["in_situ"]) for r in ranks)
+        checks["two_ranks_step_loss"] = all(
+            abs(r["loss"] - r["unsharded_loss"])
+            <= MESH_LOSS_RTOL * abs(r["unsharded_loss"]) for r in ranks)
+        checks["two_ranks_step_leaves"] = all(
+            leaf["close"] and leaf["moved"] > 0
+            for r in ranks for leaf in r["leaves"].values())
+        rec["two_ranks"] = two
+        os.remove(art_path)
+    del one_edit, floor_edit
+    torch.cuda.empty_cache()
+    rec["sections"] = timers.summary()
+    rec["checks"] = checks
+    emit(rec)
+    if not all(checks.values()):
+        raise AssertionError(f"phase mesh failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
     return rec
 
 
@@ -3031,6 +3439,9 @@ def main() -> int:
         # 7. the composed cross-view route against the fused one
         composed = check_composed(pipe, args.steps, REPS // 4)
 
+        # 7a. the device mesh: entry(), a world of one, two ranks
+        mesh = check_mesh(pipe, card, weights_root)
+
         # 7b. the masked edit: SAM ViT-H, GroundingDINO Swin-B, CLIP ViT-L/14
         masked, seg_files = check_masked_edit(pipe, card, seg_root)
         del pipe
@@ -3182,6 +3593,8 @@ def main() -> int:
                                    for c in render["calls"].values())
         k["viewer_launches"] = viewer["launches"][k["name"]]
         k["certify_launches"] = certify["launches"][k["name"]]
+        k["mesh_launches"] = mesh["world_one"]["mesh"]["counts"][k["name"]]
+        k["entry_launches"] = mesh["entry"]["launches"][k["name"]]
     total_s = time.perf_counter() - t_start
     emit(dict(phase="done", card=card, total_s=total_s))
     if args.out:
@@ -3190,7 +3603,7 @@ def main() -> int:
             json.dump(dict(card=card, build=build, k1=k1, k4=k4, k2=k2, k3=k3,
                            k5=k5, k6=k6, sass=sass, train=train,
                            reopt_split=split, weights=weights,
-                           main_path=mp, composed=composed,
+                           main_path=mp, composed=composed, mesh=mesh,
                            masked_edit=masked, certify=certify,
                            pretrain=pretrain, splat_train=splat_train,
                            render=render, viewer=viewer, export=export,

@@ -6,9 +6,18 @@ pruning, and an fp16 archive of a scene (`compress_scene_npz`). A
 checkpoint written here loads with the JAX package's `load_scene_npz`, and
 the other way round. `import_splatfacto_ckpt` reads a nerfstudio
 splatfacto checkpoint (the flat parameter names of nerfstudio 1.0 or the
-newer `gauss_params.*`). The sharded orbax checkpoints of a device mesh are
-not ported: `latest_checkpoint` sees them, as the JAX package's does, and
-`load_scene_npz` raises on them.
+newer `gauss_params.*`).
+
+Sharded checkpoints, the counterpart of the JAX package's orbax pair:
+`save_checkpoint_sharded` writes a gaussian-sharded scene (each rank its
+block of rows) as DTensors sharded over the mesh with
+`torch.distributed.checkpoint` to `step-{step:09d}.dcp/`, and
+`load_checkpoint_sharded` restores each rank's block without building the
+whole scene anywhere. The JAX package's `step-*.orbax` directories are read
+with tensorstore (`core/orbax_read.py`) where it is installed; elsewhere
+loading one raises and names tensorstore. `latest_checkpoint` sees npz
+files, `.orbax` and `.dcp` directories, and `load_scene_npz` loads any of
+them.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gaussctrl_tpu_torch.core.mesh import rows_of_rank, shard_views
 from gaussctrl_tpu_torch.splat.scene import _FIELDS, GaussianScene
 
 
@@ -55,14 +65,16 @@ def save_pytree(path, scene: GaussianScene) -> None:
 
 
 def load_scene_npz(path, device="cpu") -> GaussianScene:
-    """Load a GaussianScene from a checkpoint npz, always as float32 (an
-    fp16 archive resumes at full precision). The JAX package's sharded orbax
-    checkpoints are not read yet."""
+    """Load a GaussianScene from a checkpoint, always as float32 (an fp16
+    archive resumes at full precision): an npz, a JAX `.orbax` directory or
+    a `.dcp` directory of `save_checkpoint_sharded`, whole."""
+    if str(path).rstrip("/").endswith(".dcp"):
+        return _read_dcp(path, device=device)
     if Path(path).is_dir() or str(path).endswith(".orbax"):
-        raise NotImplementedError(
-            f"{path} is an orbax checkpoint of the JAX package's device mesh; "
-            f"the port reads npz checkpoints only")
-    data = np.load(path)
+        from gaussctrl_tpu_torch.core.orbax_read import read_orbax
+        data = read_orbax(path)
+    else:
+        data = np.load(path)
     return GaussianScene(**{k: torch.tensor(data[k].astype(np.float32),
                                             device=device) for k in _FIELDS})
 
@@ -98,12 +110,78 @@ def save_checkpoint(ckpt_dir, step: int, scene: GaussianScene,
     return out
 
 
+def save_checkpoint_sharded(ckpt_dir, step: int, scene: GaussianScene, mesh,
+                            keep_only_latest: bool = True) -> Path:
+    """Write this rank's block of a gaussian-sharded scene (every rank
+    calls it with its own rows, one row count on all) as DTensors sharded
+    over `mesh` with `torch.distributed.checkpoint`: `step-{step:09d}.dcp/`
+    in `ckpt_dir`, one file a rank and the metadata. Older `step-*.dcp`
+    directories are removed, as the JAX package prunes its orbax ones."""
+    import shutil
+
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+
+    out = Path(ckpt_dir) / f"step-{step:09d}.dcp"
+    state = {k: DTensor.from_local(getattr(scene, k).detach().contiguous(),
+                                   mesh, shard_views(mesh), run_check=False)
+             for k in _FIELDS}
+    dcp.save(state, checkpoint_id=out)
+    if keep_only_latest and mesh.get_local_rank() == 0:
+        for f in Path(ckpt_dir).glob("step-*.dcp"):
+            if f != out:
+                shutil.rmtree(f, ignore_errors=True)
+    dist.barrier(group=mesh.get_group())
+    return out
+
+
+def load_checkpoint_sharded(path, like: GaussianScene, mesh) -> GaussianScene:
+    """Restore this rank's block of rows of a `.dcp` checkpoint (the global
+    row count must split evenly over `mesh`), read without building the
+    whole scene on any rank. `like`, this rank's block of the scene to be
+    restored (its values are not read), gives the device and is checked
+    against the checkpoint. `load_scene_npz` reads the whole scene."""
+    return _read_dcp(path, like, mesh)
+
+
+def _read_dcp(path, like: GaussianScene | None = None, mesh=None,
+              device="cpu") -> GaussianScene:
+    """A `.dcp` checkpoint as float32: this rank's rows with `mesh`, all of
+    them (no process group needed) without."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+
+    sizes = {k: tuple(v.size) for k, v in dcp.FileSystemReader(path)
+             .read_metadata().state_dict_metadata.items()}
+    n = sizes["means"][0]
+    if mesh is not None:
+        rows = rows_of_rank(n, mesh)
+        n = rows.stop - rows.start
+    state = {}
+    for k in _FIELDS:
+        shape = (n,) + sizes[k][1:]
+        ref = None if like is None else getattr(like, k)
+        if ref is not None and tuple(ref.shape) != shape:
+            raise ValueError(f"{path}: {k} restores as {shape}, `like` holds "
+                             f"{tuple(ref.shape)}")
+        local = torch.empty(shape, dtype=torch.float32,
+                            device=device if ref is None else ref.device)
+        state[k] = local if mesh is None else DTensor.from_local(
+            local, mesh, shard_views(mesh), run_check=False)
+    dcp.load(state, checkpoint_id=path)
+    return GaussianScene(**{k: v if mesh is None else v.to_local()
+                            for k, v in state.items()})
+
+
 def latest_checkpoint(ckpt_dir) -> Path | None:
-    """The highest-step checkpoint across the npz files and the JAX
-    package's orbax directories (`step-*.orbax`); at equal steps the
-    full-precision npz, then the first listed, as the JAX package picks."""
+    """The highest-step checkpoint across the npz files, the JAX package's
+    orbax directories (`step-*.orbax`) and the sharded `step-*.dcp`
+    directories; at equal steps the full-precision npz, then the first
+    listed, as the JAX package picks."""
     ckpts = list(Path(ckpt_dir).glob("step-*.npz")) + \
-        list(Path(ckpt_dir).glob("step-*.orbax"))
+        list(Path(ckpt_dir).glob("step-*.orbax")) + \
+        list(Path(ckpt_dir).glob("step-*.dcp"))
     return max(ckpts, key=lambda p: (checkpoint_step(p),
                                      not p.name.endswith(".fp16.npz"))
                ) if ckpts else None

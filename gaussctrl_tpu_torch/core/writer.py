@@ -2,10 +2,9 @@
 
 Counterpart of `gaussctrl_tpu/core/writer.py`: an append-only JSONL event
 log (`events.jsonl`, one `{"step", "group", "t", **scalars}` record a line)
-with a console echo every `echo_every` steps, and `cuda_trace`, the
-counterpart of its `tpu_trace`: a `torch.profiler` trace written as a
-Chrome trace. The JAX package's section timers have no counterpart: nothing
-calls them.
+with a console echo every `echo_every` steps, `SectionTimers` (named
+wall-clock timers) and `cuda_trace`, the counterpart of its `tpu_trace`: a
+`torch.profiler` trace written as a Chrome trace.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ import contextlib
 import json
 import os
 import time
+from collections import defaultdict
 from pathlib import Path
 from typing import Optional
 
@@ -48,6 +48,32 @@ class MetricsWriter:
     def close(self):
         if self.path is not None:
             self._fh.close()
+
+
+class SectionTimers:
+    """Named wall-clock timers (host clock; synchronise the card inside a
+    section to time its work)."""
+
+    def __init__(self):
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def summary(self) -> dict:
+        """{name: {"total_s", "count", "mean_s"}}, rounded as the JAX
+        package's are."""
+        return {n: {"total_s": round(self.totals[n], 3),
+                    "count": self.counts[n],
+                    "mean_s": round(self.totals[n] / max(self.counts[n], 1), 4)}
+                for n in self.totals}
 
 
 @contextlib.contextmanager

@@ -25,6 +25,17 @@ The diffusion stack runs at the camera size rounded up to its
 divisibility (64 for SD-1.5): views are resized into and out of it with
 `resize_bilinear`, which is `jax.image.resize`'s antialiased bilinear.
 
+With a `mesh` (`core/mesh.py`) every rank holds the scene, the weights and
+the cameras, and the views are sharded: each rank renders, encodes, inverts
+and masks its contiguous share of the views (padded to a multiple of the
+mesh size by repeating the last view), and the artifacts are gathered to
+every rank. The all-at-once edit gives each rank the reference views plus
+its share of the others in one batch (`mesh.shard_with_refs`), so K3 finds
+the refs in its own batch; the chunked edit gives rank r the chunks whose
+index is r modulo the mesh size. Each rank decodes its share of the edited
+latents. Re-optimisation is not sharded: every rank takes the same steps
+from the same seed on the gathered edits.
+
 Prompt handling and the reference-view draw match the reference pipeline.
 Arrays keep the JAX package's NHWC layout: unedited [V,H,W,3], depths
 [V,H,W,1], z_T [V,h,w,4], edited [V,H,W,3].
@@ -41,6 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from gaussctrl_tpu_torch.cameras.camera import Cameras
+from gaussctrl_tpu_torch.core.mesh import (gather_rows, gather_share, share_of,
+                                           shard_with_refs)
 from gaussctrl_tpu_torch.device import resolve_device
 from gaussctrl_tpu_torch.diffusion.bridge import load_flax_params
 from gaussctrl_tpu_torch.diffusion.clip import (NEGATIVE_PROMPT, POSITIVE_SUFFIX,
@@ -121,17 +134,19 @@ class GaussCtrlPipeline:
     with `weights.load_sd_models`, and the tokenizer is the BPE one when
     `<diffusion_ckpt>/tokenizer/{vocab.json,merges.txt}` exist; with neither,
     random weights are drawn from `weights_seed`. `masker`: a
-    `seg.MaskProvider`, called with `config.langsam_obj`. Runs on the card
-    unless `device="cpu"`."""
+    `seg.MaskProvider`, called with `config.langsam_obj`. `mesh`: a 1-D
+    `DeviceMesh` (`core.mesh.make_mesh`) over which the views are sharded,
+    or None. Runs on the card unless `device="cpu"`."""
 
     def __init__(self, config: GaussCtrlConfig, scene: GaussianScene,
                  cameras: Cameras, sd_config: Optional[SDConfig] = None,
                  sd_params: Optional[Dict[str, Any]] = None,
                  dtype=torch.bfloat16, raster_cfg: RasterConfig = RasterConfig(),
-                 device=None, weights_seed: int = 0, masker=None):
+                 device=None, weights_seed: int = 0, masker=None, mesh=None):
         self.device = resolve_device(device)
         self.config = config
         self.masker = masker
+        self.mesh = mesh
         self.scene = GaussianScene(**{f.name: getattr(scene, f.name).to(self.device)
                                       for f in dataclasses.fields(scene)})
         self.cameras = cameras.to(self.device)
@@ -231,50 +246,54 @@ class GaussCtrlPipeline:
     def render_reverse(self, log_fn=None):
         cams, cfg = self.cameras, self.config
         V = len(cams)
+        mine = share_of(list(range(V)), self.mesh)   # this rank's views
+        n = len(mine)
         bg = torch.zeros(3, device=self.device)
         rgbs, depths = [], []
-        for i in range(V):
+        for i in mine:
             out = render_rgbd(self.scene, cams.c2w[i], cams.fx[i], cams.fy[i],
                               cams.cx[i], cams.cy[i], cams.width, cams.height,
                               bg, self.scene.sh_degree, self.raster_cfg)
             rgbs.append(out["rgb"])
             depths.append(out["depth"])
         if log_fn:
-            log_fn(f"rendered {V} views")
-        self.unedited = torch.stack(rgbs)
-        self.depths = torch.stack(depths)
-        self.disparity = depth_to_disparity(self.depths)
+            log_fn(f"rendered {n} views")
+        unedited, depths = torch.stack(rgbs), torch.stack(depths)
+        disparity = depth_to_disparity(depths)
 
-        bs = max(1, min(cfg.render_batch, V))
+        bs = max(1, min(cfg.render_batch, n))
         z0 = torch.cat([vae_encode(self.models,
-                                   self._to_diffusion_res(self.unedited[lo:lo + bs]))
-                        for lo in range(0, V, bs)])
+                                   self._to_diffusion_res(unedited[lo:lo + bs]))
+                        for lo in range(0, n, bs)])
         reverse = cfg.reverse_prompt + POSITIVE_SUFFIX
         proc = FlashSelfAttnProcessor()
-        ibs = V if cfg.invert_batch <= 0 else min(cfg.invert_batch, V)
+        ibs = n if cfg.invert_batch <= 0 else min(cfg.invert_batch, n)
         zs = []
-        for lo in range(0, V, ibs):
-            hi = min(lo + ibs, V)
+        for lo in range(0, n, ibs):
+            hi = min(lo + ibs, n)
             zs.append(invert(self.models, self.sched, z0[lo:hi],
                              self._ctx(reverse, hi - lo),
-                             self._to_diffusion_res(self.disparity[lo:hi]),
+                             self._to_diffusion_res(disparity[lo:hi]),
                              cfg.num_inference_steps, cfg.conditioning_scale,
                              easyinv_rho=cfg.easyinv_rho,
                              unet_processor=proc, controlnet_processor=proc))
             if log_fn:
-                log_fn(f"inverted views {lo}..{hi - 1}")
-        self.z_T = torch.cat(zs)
+                log_fn(f"inverted views {mine[lo]}..{mine[hi - 1]}")
         if cfg.langsam_obj and self.masker is not None:
-            self.masks = self.masker(self.unedited, cfg.langsam_obj).to(
-                self.device, self.unedited.dtype)
-            if log_fn:
-                log_fn(f"masked '{cfg.langsam_obj}' in "
-                       f"{int((self.masks.flatten(1).amax(1) > 0).sum())} "
-                       f"of {V} views")
+            masks = self.masker(unedited, cfg.langsam_obj).to(
+                self.device, unedited.dtype)
         else:
-            self.masks = torch.ones(self.unedited.shape[:3] + (1,),
-                                    dtype=self.unedited.dtype,
-                                    device=self.device)
+            masks = torch.ones(unedited.shape[:3] + (1,), dtype=unedited.dtype,
+                               device=self.device)
+        self.unedited = gather_share(unedited, V, self.mesh)
+        self.depths = gather_share(depths, V, self.mesh)
+        self.disparity = gather_share(disparity, V, self.mesh)
+        self.z_T = gather_share(torch.cat(zs), V, self.mesh)
+        self.masks = gather_share(masks, V, self.mesh)
+        if cfg.langsam_obj and self.masker is not None and log_fn:
+            log_fn(f"masked '{cfg.langsam_obj}' in "
+                   f"{int((self.masks.flatten(1).amax(1) > 0).sum())} "
+                   f"of {V} views")
         return self
 
     # -- stage 2: cross-view edit -------------------------------------------
@@ -289,8 +308,8 @@ class GaussCtrlPipeline:
         edit_prompt = cfg.edit_prompt + POSITIVE_SUFFIX
         groups = 2 if cfg.guidance_scale > 1.0 else 1
 
-        # allow_fused: the fused kernel K3 runs on one card; the JAX package
-        # turns it off under a device mesh, which the port does not have yet
+        # allow_fused: every rank runs K3 on its own batch, mesh or not (the
+        # JAX package turns it off under a mesh: Pallas has no partition rules)
         def run_batch(z, disp):
             b = z.shape[0]
             return denoise(
@@ -306,16 +325,25 @@ class GaussCtrlPipeline:
         disparity = self._to_diffusion_res(self.disparity)
         edited: List[Optional[torch.Tensor]] = [None] * V
         if cfg.chunk_size <= 0:
-            order = refs + others
-            out = run_batch(self.z_T[order], disparity[order])
-            for pos, i in enumerate(order):
-                edited[i] = out[pos]
+            ref_out, others_out = shard_with_refs(
+                run_batch, refs, others, self.mesh, self.z_T, disparity)
+            for pos, i in enumerate(refs):
+                edited[i] = ref_out[pos]
+            for pos, i in enumerate(others):
+                edited[i] = others_out[pos]
             if log_fn:
                 log_fn(f"edited all {V} views in one batch")
         else:
+            world = 1 if self.mesh is None else self.mesh.size()
+            rank = 0 if self.mesh is None else self.mesh.get_local_rank()
+            owner = [0] * V        # the rank whose chunk edits each view
             ref_z, ref_disp = self.z_T[refs], disparity[refs]
-            for lo in range(0, len(others), cfg.chunk_size):
+            for c, lo in enumerate(range(0, len(others), cfg.chunk_size)):
                 chunk = others[lo:lo + cfg.chunk_size]
+                for i in chunk:
+                    owner[i] = c % world
+                if c % world != rank:
+                    continue
                 out = run_batch(torch.cat([ref_z, self.z_T[chunk]]),
                                 torch.cat([ref_disp, disparity[chunk]]))
                 for pos, i in enumerate(chunk):
@@ -325,8 +353,16 @@ class GaussCtrlPipeline:
                         edited[i] = out[pos]
                 if log_fn:
                     log_fn(f"edited chunk {chunk}")
+            if self.mesh is not None:
+                zero = torch.zeros_like(self.z_T[0])
+                local = torch.stack([zero if e is None else e for e in edited])
+                every = gather_rows(local, self.mesh).reshape(world, *local.shape)
+                edited = list(every[torch.tensor(owner, device=self.device),
+                                    torch.arange(V, device=self.device)])
         lat = torch.stack(edited)
-        imgs = self._from_diffusion_res(vae_decode(self.models, lat))
+        mine = share_of(list(range(V)), self.mesh)
+        imgs = gather_share(vae_decode(self.models, lat[mine]), V, self.mesh)
+        imgs = self._from_diffusion_res(imgs)
         m = self.masks
         self.edited = m * imgs + (1.0 - m) * self.unedited
         return self

@@ -17,6 +17,14 @@ card (`splat/rasterize.py`). Pre-training (`splat/pretrain.py`) also needs
 `zero_adam_rows` (newborn slots), `reset_group_moments` (after an opacity
 reset) and `adopt_params` (Adam's state onto the leaves that capacity
 growth replaced).
+
+The gaussian-sharded step (`train_step(..., mesh=)`, the role of the JAX
+package's dry run of a `train_step` on a scene sharded over the gaussians)
+gives each rank a contiguous block of N / world gaussians (`shard_scene`)
+with its Adam state: projection and SH run on the block, the projected rows
+are gathered, the binning, the blend (K1), the loss and the blend's
+backward (K4) run alike on every rank, the gather's backward hands each
+rank its block's gradient, and Adam steps the block.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from gaussctrl_tpu_torch.cameras.camera import Cameras
+from gaussctrl_tpu_torch.core.mesh import rows_of_rank
 from gaussctrl_tpu_torch.splat.losses import splat_loss
 from gaussctrl_tpu_torch.splat.rasterize import RasterConfig
 from gaussctrl_tpu_torch.splat.render import render_rgbd
@@ -75,6 +84,14 @@ def trainable(scene: GaussianScene) -> GaussianScene:
     return GaussianScene(**{
         f.name: getattr(scene, f.name).detach().float().clone().requires_grad_()
         for f in dataclasses.fields(scene)})
+
+
+def shard_scene(scene: GaussianScene, mesh) -> GaussianScene:
+    """This rank's contiguous block of the scene's gaussians; N must be a
+    multiple of the mesh size (the error names the padding needed)."""
+    rows = rows_of_rank(scene.num_gaussians, mesh)
+    return GaussianScene(**{f.name: getattr(scene, f.name)[rows]
+                            for f in dataclasses.fields(scene)})
 
 
 def make_optimizer(scene: GaussianScene,
@@ -193,10 +210,10 @@ def render_loss(scene: GaussianScene, c2w, fx, fy, cx, cy,
                 gt_image: torch.Tensor, background: torch.Tensor, width: int,
                 height: int, sh_degree: int = 3,
                 raster_cfg: RasterConfig = RasterConfig(),
-                train_cfg: TrainConfig = TrainConfig()):
+                train_cfg: TrainConfig = TrainConfig(), mesh=None):
     """(loss, metrics) of one view: render, then L1 + SSIM against it."""
     out = render_rgbd(scene, c2w, fx, fy, cx, cy, width, height, background,
-                      sh_degree, raster_cfg)
+                      sh_degree, raster_cfg, mesh=mesh)
     return splat_loss(out["rgb"], gt_image, train_cfg.ssim_lambda)
 
 
@@ -206,11 +223,13 @@ def train_step(scene: GaussianScene, optimizer: torch.optim.Adam, step: int,
                sh_degree: int = 3, raster_cfg: RasterConfig = RasterConfig(),
                train_cfg: TrainConfig = TrainConfig(),
                cam_opt: Optional[CameraOptimizer] = None,
-               view_idx: int = 0) -> dict:
+               view_idx: int = 0, mesh=None) -> dict:
     """One re-optimisation step on one view, in place: render, L1 + SSIM,
     backward (K4 on the card), Adam over the groups (the camera-opt group
     too when `cam_opt` is given), quats renormalised. `step` is the 0-based
-    step, for the means' lr schedule. Returns the metrics as tensors."""
+    step, for the means' lr schedule. With `mesh`, `scene` and `optimizer`
+    hold this rank's block of a gaussian-sharded scene (module docstring).
+    Returns the metrics as tensors."""
     sched = _exp_decay(train_cfg.lr_means, train_cfg.lr_means_final,
                        train_cfg.lr_means_max_steps, train_cfg.lr_step_offset)
     optimizer.param_groups[GROUPS.index("means")]["lr"] = sched(step)
@@ -218,7 +237,7 @@ def train_step(scene: GaussianScene, optimizer: torch.optim.Adam, step: int,
         c2w = apply_camera_opt(c2w, cam_opt.deltas[view_idx])
     loss, metrics = render_loss(scene, c2w, fx, fy, cx, cy, gt_image,
                                 background, width, height, sh_degree,
-                                raster_cfg, train_cfg)
+                                raster_cfg, train_cfg, mesh)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()

@@ -574,3 +574,55 @@ def test_deform_sample_card_matches_cpu(spread):
     shapes = [(4, 6), (2, 3)]
     _seg_close(deform_sample(val.cuda(), shapes, locs.cuda(), w.cuda()),
                deform_sample(val, shapes, locs, w))
+
+
+def _card_mesh_rank():
+    """A world of one over NCCL: the gather is a copy, and the
+    gaussian-sharded step (K1, K4) equals the unsharded one bit for bit."""
+    from gaussctrl_tpu_torch.core.mesh import gather_rows, make_mesh
+    from gaussctrl_tpu_torch.splat.scene import random_scene
+    from gaussctrl_tpu_torch.splat.trainer import (make_optimizer, shard_scene,
+                                                   train_step, trainable)
+    mesh = make_mesh()
+    x = torch.arange(6.0, device="cuda").reshape(3, 2)
+    scene = random_scene(torch.Generator(device="cuda").manual_seed(2), 4096,
+                         sh_degree=1, device="cuda")
+    c2w = torch.eye(4, device="cuda")[:3]
+    c2w[2, 3] = 2.0
+    kw = dict(c2w=c2w, fx=80.0, fy=80.0, cx=32.0, cy=32.0,
+              gt_image=torch.zeros((64, 64, 3), device="cuda"),
+              background=torch.full((3,), 0.5, device="cuda"), width=64,
+              height=64, sh_degree=1)
+    local, full = trainable(shard_scene(scene, mesh)), trainable(scene)
+    m_s = train_step(local, make_optimizer(local), 0, mesh=mesh, **kw)
+    m_r = train_step(full, make_optimizer(full), 0, **kw)
+    return dict(gathered=bool(torch.equal(gather_rows(x, mesh), x)),
+                loss_equal=bool(torch.equal(m_s["loss"], m_r["loss"])),
+                scene_equal=all(torch.equal(getattr(local, k),
+                                            getattr(full, k))
+                                for k in ("means", "scales", "quats",
+                                          "opacities", "features_dc",
+                                          "features_rest")))
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_mesh_on_card():
+    """`make_mesh()` on the card in a spawned rank (NCCL, a world of one):
+    the gather and the gaussian-sharded re-optimisation step."""
+    _card()
+    from gaussctrl_tpu_torch.core.mesh import spawn_ranks
+    out, = spawn_ranks(_card_mesh_rank, 1, device="cuda")
+    assert out == dict(gathered=True, loss_equal=True, scene_equal=True)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_card():
+    """`dryrun_multichip(1)` without a device: one NCCL rank on the card
+    runs every stage (the kernels at the tiny and nano widths) and passes
+    its own checks."""
+    _card()
+    from gaussctrl_tpu_torch.entry import RUN_VIEWS, dryrun_multichip
+    rep, = dryrun_multichip(1)
+    assert rep["edit"] == "sharded == replicated"
+    assert rep["nano_eps"] == "finite"
+    assert rep["run"]["edited_chunk0"].shape[0] == RUN_VIEWS

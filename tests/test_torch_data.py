@@ -243,8 +243,9 @@ def test_npz_checkpoint_across_packages(tmp_path):
 ])
 def test_latest_checkpoint_sees_orbax_as_jax_does(tmp_path, files, latest):
     """Both packages' latest_checkpoint pick the same path across npz files
-    and orbax directories; the port's loader raises on an orbax directory,
-    naming it."""
+    and orbax directories; the port's loader raises on an orbax directory
+    that holds no checkpoint, naming it (a real one loads:
+    `tests/test_torch_mesh.py`)."""
     js = _jax_scene(4)
     for name in files:
         if name.endswith("/"):
@@ -254,7 +255,7 @@ def test_latest_checkpoint_sees_orbax_as_jax_does(tmp_path, files, latest):
     got = tckpt.latest_checkpoint(tmp_path)
     assert got == jckpt.latest_checkpoint(tmp_path) == tmp_path / latest
     orbax = next(tmp_path.glob("step-*.orbax"))
-    with pytest.raises(NotImplementedError, match=orbax.name):
+    with pytest.raises(ValueError, match=orbax.name):
         tckpt.load_scene_npz(orbax)
 
 

@@ -38,7 +38,9 @@ def test_package_imports_no_jax_or_reference_package():
               "gaussctrl_tpu_torch.cli.export", "gaussctrl_tpu_torch.cli.viewer",
               "gaussctrl_tpu_torch.cli.certify", "gaussctrl_tpu_torch.certify",
               "gaussctrl_tpu_torch.cameras.stereo",
-              "gaussctrl_tpu_torch.viewer.server"):
+              "gaussctrl_tpu_torch.viewer.server",
+              "gaussctrl_tpu_torch.core.mesh", "gaussctrl_tpu_torch.entry",
+              "gaussctrl_tpu_torch.core.orbax_read"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -176,7 +178,9 @@ def test_modules_and_chip_smoke_import_with_jax_and_safetensors_blocked(tmp_path
               "gaussctrl_tpu_torch.cli.export", "gaussctrl_tpu_torch.cli.viewer",
               "gaussctrl_tpu_torch.cli.certify", "gaussctrl_tpu_torch.certify",
               "gaussctrl_tpu_torch.cameras.stereo",
-              "gaussctrl_tpu_torch.viewer.server"):
+              "gaussctrl_tpu_torch.viewer.server",
+              "gaussctrl_tpu_torch.core.mesh", "gaussctrl_tpu_torch.entry",
+              "gaussctrl_tpu_torch.core.orbax_read"):
         assert m in mods, m
     path = tmp_path / "t.safetensors"
     code = ("import importlib, sys\n"
@@ -228,3 +232,51 @@ def test_pretrain_and_splat_train_default_to_the_card(tmp_path):
         splat_train.main(["--data", os.path.join(REPO, "data", "example_scene"),
                           "--output-dir", str(tmp_path),
                           "--trainer.num_steps", "1"])
+
+
+def test_mesh_entry_and_dry_run_default_to_the_card():
+    """`make_mesh()`, `spawn_ranks`, `dryrun_multichip(2)` and `entry()`
+    without a device ask for the card and raise without one, before any
+    process group is joined or any rank is started."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    import torch.distributed as dist
+
+    from gaussctrl_tpu_torch.core.mesh import make_mesh, spawn_ranks
+    from gaussctrl_tpu_torch.entry import dryrun_multichip, entry
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spawn_ranks(print, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    assert not dist.is_initialized()
+
+
+def test_orbax_reader_imports_no_orbax_or_jax(tmp_path):
+    """The port reads a JAX orbax checkpoint in a fresh interpreter with
+    `jax`, `flax`, `orbax` and `gaussctrl_tpu` blocked, and neither orbax
+    nor JAX is loaded afterwards."""
+    pytest.importorskip("tensorstore", reason="the orbax reader needs tensorstore")
+    import jax
+
+    from gaussctrl_tpu.core.ckpt import save_checkpoint_sharded
+    from gaussctrl_tpu.splat.scene import random_scene
+
+    js = random_scene(jax.random.PRNGKey(0), 16, sh_degree=1)
+    path = save_checkpoint_sharded(tmp_path, 3, js)
+    code = ("import sys\n"
+            "for b in ('jax', 'flax', 'orbax', 'gaussctrl_tpu'):\n"
+            "    sys.modules[b] = None\n"
+            "from gaussctrl_tpu_torch.core.ckpt import load_scene_npz\n"
+            f"s = load_scene_npz({str(path)!r})\n"
+            "bad = [m for m in sys.modules if sys.modules[m] is not None and"
+            " m.split('.')[0] in ('jax', 'flax', 'orbax', 'gaussctrl_tpu')]\n"
+            "print(tuple(s.means.shape), bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "(16, 3) []"
