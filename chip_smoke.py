@@ -37,6 +37,18 @@ Phases, each printing one JSON line with its wall time:
                   gradients), each K4 call also held against its plain
                   version on its own inputs; then `reopt_split`: one warmed
                   full-width re-optimisation step timed in its parts;
+  5c. golden     the port against the JAX package's golden
+                  (tests/golden/torch_sd15.npz: SD-1.5 widths, a
+                  200,000-gaussian scene at 512x512, made on the CPU in
+                  float32 by scripts/torch_golden.py): the seeded weight
+                  files rewritten from their seed with their sha256 checked,
+                  then every case (text, vae_encode, invert_step, edit_step,
+                  vae_decode, render, reopt_step, run) three ways: the plain
+                  versions in float32 within the CPU's tolerance, the plain
+                  versions in bf16, and K1-K6 as the main path runs them,
+                  within twice the bf16 plain gap (the CPU's tolerance where
+                  the path is float32), with exact launch counts and every
+                  kernel held in situ;
   6a. weights    the seeded random SD-1.5 weights written to a temporary
                   diffusers layout (unet/, vae/, controlnet as fp16
                   safetensors from the port's writer, the VAE mid-block
@@ -2299,6 +2311,262 @@ def check_masked_edit(pipe, card: str, root: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: the port held against the JAX package's golden at SD-1.5 widths
+# ---------------------------------------------------------------------------
+
+GOLDEN_PATH = os.path.join(HERE, "tests", "golden", "torch_sd15.npz")
+# (c) the kernels in bf16 against (b) the plain versions in bf16: each
+# case's relative RMS to the golden at most this times (b)'s, on the
+# outputs bf16 reaches (random SD-1.5 weights amplify bf16 rounding to
+# 0.01-0.06 relative RMS end to end, PERF.md)
+GOLDEN_RATIO = 2.0
+GOLDEN_BF16_OUTPUTS = dict(text=("hidden",), vae_encode=("latents",),
+                           invert_step=("z",), edit_step=("z",),
+                           vae_decode=("images",), run=("z_T", "edited"))
+# the splat path runs in float32 on every route: there the kernels (c) are
+# held to the CPU's tolerance too
+GOLDEN_FP32_CASES = ("render", "reopt_step")
+GOLDEN_RUN_FP32_OUTPUTS = ("refs", "unedited", "depths")
+
+
+def plain_routes() -> list:
+    """Patch entries that send every kernel wrapper to its plain version,
+    where the callers look the wrappers up."""
+    import importlib
+    from gaussctrl_tpu_torch.diffusion import processors
+    from gaussctrl_tpu_torch.ops import flash_attention as fa
+    from gaussctrl_tpu_torch.ops import splat_blend as sb
+    rast = importlib.import_module("gaussctrl_tpu_torch.splat.rasterize")
+    return [(fa, "flash_attention_t", fa.attention_plain),
+            (processors, "cross_view_attention", fa.cross_view_attention_plain),
+            (fa, "attention_full", fa.attention_plain),
+            (fa, "attention_stream", fa.attention_stream_plain),
+            (rast, "blend", sb.blend_plain),
+            (rast, "blend_bwd", sb.blend_bwd_plain)]
+
+
+def golden_expected(case: str, layers: dict, run_views: int = 0,
+                    ddim_steps: int = 1) -> dict:
+    """The exact kernel launches of one golden case on the kernel route."""
+    from types import SimpleNamespace
+    from gaussctrl_tpu_torch import golden as g
+    from gaussctrl_tpu_torch.ops import launch_counts
+    from gaussctrl_tpu_torch.pipeline.gaussctrl import (GaussCtrlConfig,
+                                                        select_ref_views)
+    if case == "run":
+        cfg = GaussCtrlConfig(**g.run_config("", "", ddim_steps))
+        pipe = SimpleNamespace(config=cfg, ref_indices=select_ref_views(
+            run_views, cfg.ref_view_num, cfg.seed))
+        return expected_launches(pipe, layers, run_views, ddim_steps,
+                                 cfg.render_rate)[0]
+    expected = dict.fromkeys(launch_counts, 0)
+    if case in ("vae_encode", "vae_decode"):
+        expected[std_kernel(VAE_WIDTH, VAE_TOKENS)] = 1
+    elif case == "render":
+        expected["splat_blend_fwd"] = g.RENDER_VIEWS
+    elif case == "reopt_step":
+        expected["splat_blend_fwd"] = expected["splat_blend_bwd"] = 1
+    elif case in ("invert_step", "edit_step"):
+        for t, c in LEVELS:
+            n_unet, n_cn = LAYERS_PER_LEVEL[t]
+            expected[std_kernel(c // HEADS, TEXT_TOKENS)] += n_unet + n_cn
+            if case == "invert_step":       # K2 at every self-attention
+                expected["flash_attention_t"] += n_unet + n_cn
+            elif str(t) in fused_levels():   # K3
+                expected["cross_view_attention"] += n_unet + n_cn
+            else:    # composed: the UNet's self branch, one call a reference
+                expected["flash_attention_t"] += n_unet
+                expected[std_kernel(c // HEADS, t)] += \
+                    g.EDIT_REFS * (n_unet + n_cn)
+    return expected
+
+
+def golden_held_ok(expected: dict, in_situ: dict) -> bool:
+    """Every kernel the case launches was held in situ within its
+    tolerance (`attention_holds`, `splat_holds`)."""
+    for name, n in expected.items():
+        if not n:
+            continue
+        w = in_situ[name]
+        if not w.get("calls"):
+            return False
+        if name == "splat_blend_fwd":
+            ok = w["max_abs_err"] <= K1_TOL
+        elif name == "splat_blend_bwd":
+            ok = all(v <= K4_SCALED_TOL for k, v in w.items()
+                     if k not in ("calls", "max_abs_err"))
+        else:
+            ok = attn_ok(w)
+        if not ok:
+            return False
+    return True
+
+
+def _golden_route(case: str, route: str, golden: dict, **kw) -> dict:
+    """One case on one route: "plain" (every wrapper sent to its plain
+    version; no launch allowed) or "kernels" (the wrappers as they are,
+    each kernel's first calls held in situ): errors to the golden, launch
+    counts and seconds."""
+    import torch
+    from gaussctrl_tpu_torch import golden as g
+    from gaussctrl_tpu_torch.ops import launch_counts, reset_launch_counts
+    in_situ = None
+    if route == "plain":
+        entries = plain_routes()
+    else:
+        attn, in_situ = attention_holds(CERTIFY_HELD_PER_SHAPE)
+        splat, splat_situ = splat_holds(MESH_SPLAT_HELD)
+        entries = attn + splat
+        in_situ.update(splat_situ)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with _patched(entries):
+        out = g.port_case(case, g.case_inputs(case), DEVICE, **kw)
+    torch.cuda.synchronize()
+    rec = dict(seconds=time.perf_counter() - t0, launches=dict(launch_counts),
+               errors=g.compare(out, golden, case))
+    if case == "reopt_step":
+        rec["flips_on_signal"] = g.flips_on_signal(out, golden)
+    if in_situ is not None:
+        rec["in_situ"] = in_situ
+    return rec
+
+
+def check_golden(card: str):
+    """The port on the card against the JAX package's golden
+    (tests/golden/torch_sd15.npz, made on the CPU in float32 by
+    scripts/torch_golden.py): the seeded SD-1.5 weight files are rewritten
+    from their seed and refused unless every sha256 is the golden's; then
+    every case runs three ways: (a) the plain versions in float32 (TF32
+    off), which must meet the CPU's tolerance (`golden.tolerances()`), so
+    that the card's cuDNN and cuBLAS paths compute the reference's
+    function; (b) the plain versions in the pipeline's bf16; (c) the main
+    path as it runs, K1-K6 in bf16, whose relative RMS to the golden must be
+    at most GOLDEN_RATIO times (b)'s on the outputs bf16 reaches, with exact
+    launch counts and the first calls of each kernel held in situ against
+    its plain version. The splat path is float32 on every route, so
+    `render` and `reopt_step` have no (b) and their (c) meets the CPU's
+    tolerance (and `reopt_step` steps no entry another way where the
+    gradient is signal); `run`'s renders do too, and on the bf16 routes its
+    re-optimised rows stay within what its Adam steps can move."""
+    import numpy as np
+    import torch
+    from gaussctrl_tpu_torch import golden as g
+    from gaussctrl_tpu_torch.diffusion import weights as tw
+    from gaussctrl_tpu_torch.diffusion.config import SDConfig
+    from gaussctrl_tpu_torch.diffusion.sample import SDModels
+    t0 = time.perf_counter()
+    with np.load(GOLDEN_PATH) as f:
+        golden = {k: f[k] for k in f.files}
+    ddim_steps = int(golden["meta.run_ddim_steps"])
+    root = tempfile.mkdtemp(prefix="gaussctrl_golden_")
+    cases, failures = {}, []
+    try:
+        t1 = time.perf_counter()
+        hashes = tw.write_seeded_sd(root, g.WEIGHTS_SEED)
+        write_s = time.perf_counter() - t1
+        want = dict(zip(golden["meta.weight_files"].tolist(),
+                        golden["meta.weight_sha256"].tolist()))
+        scene = g.scene_arrays()
+        scene_ok = golden["meta.scene_sha256"].tolist() == [
+            g.sha256(scene[f]) for f in g.FIELDS]
+        del scene
+        emit(dict(phase="golden_weights", seconds=write_s,
+                  hashes_equal=hashes == want, scene_hashes_equal=scene_ok,
+                  hashes=hashes))
+        if hashes != want or not scene_ok:
+            raise AssertionError(f"the seeded inputs differ from the golden's: "
+                                 f"{hashes} != {want} or scene {scene_ok}")
+        dirs = (os.path.join(root, tw.SEEDED_SD_DIR),
+                os.path.join(root, tw.SEEDED_CN_DIR))
+        models = SDModels.create(SDConfig.sd15(), device=DEVICE)
+        tw.load_sd_models(models, *dirs)
+        layers = attention_layer_counts(models)
+        kw = dict(background=golden["reopt_step.background"],
+                  backgrounds=golden["run.backgrounds"], ddim_steps=ddim_steps,
+                  sd_dirs=dirs)
+        for case in g.CASES:
+            cases[case] = dict(expected=golden_expected(
+                case, layers, g.RUN_VIEWS, ddim_steps))
+        for case in g.DIFFUSION_CASES:
+            cases[case]["fp32_plain"] = _golden_route(case, "plain", golden,
+                                                      models=models, **kw)
+        for m in models.modules():
+            m.to(torch.bfloat16)
+        for case in g.DIFFUSION_CASES:
+            cases[case]["bf16_plain"] = _golden_route(case, "plain", golden,
+                                                      models=models, **kw)
+            cases[case]["bf16_kernels"] = _golden_route(case, "kernels", golden,
+                                                        models=models, **kw)
+        del models
+        torch.cuda.empty_cache()
+        for case in GOLDEN_FP32_CASES:
+            cases[case]["fp32_plain"] = _golden_route(case, "plain", golden, **kw)
+            cases[case]["fp32_kernels"] = _golden_route(case, "kernels", golden,
+                                                        **kw)
+        cases["run"]["fp32_plain"] = _golden_route("run", "plain", golden, **kw)
+        torch.cuda.empty_cache()
+        for route in ("plain", "kernels"):
+            cases["run"][f"bf16_{route}"] = _golden_route(
+                "run", route, golden, dtype=torch.bfloat16, **kw)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    for case, rec in cases.items():
+        kern = rec.get("bf16_kernels") or rec["fp32_kernels"]
+        checks = dict(
+            fp32_plain_within_cpu_tolerance=not g.over_tolerance(
+                case, rec["fp32_plain"]["errors"]),
+            plain_launched_nothing=all(
+                not any(r["launches"].values()) for key, r in rec.items()
+                if key.endswith("_plain")),
+            exact_launches=kern["launches"] == rec["expected"],
+            held_in_situ=golden_held_ok(rec["expected"], kern["in_situ"]))
+        if case in GOLDEN_FP32_CASES:
+            checks["kernels_within_cpu_tolerance"] = not g.over_tolerance(
+                case, kern["errors"])
+        else:
+            plain = rec["bf16_plain"]["errors"]
+            checks["kernels_within_ratio_of_bf16_plain"] = all(
+                kern["errors"][n]["rel_rms"]
+                <= GOLDEN_RATIO * plain[n]["rel_rms"]
+                for n in GOLDEN_BF16_OUTPUTS[case])
+            rec["ratio"] = {n: kern["errors"][n]["rel_rms"]
+                            / max(plain[n]["rel_rms"], 1e-30)
+                            for n in GOLDEN_BF16_OUTPUTS[case]}
+        if case == "run":
+            errs = {n: kern["errors"][n] for n in GOLDEN_RUN_FP32_OUTPUTS}
+            checks["kernel_renders_within_cpu_tolerance"] = not g.over_tolerance(
+                case, errs)
+            checks["reoptimised_within_adam_bound"] = not any(
+                g.over_tolerance(case, {n: e for n, e in r["errors"].items()
+                                        if n.startswith("after_")})
+                for key, r in rec.items() if key.startswith("bf16_"))
+        if case == "reopt_step":
+            checks["no_flips_on_signal"] = all(
+                not any(r["flips_on_signal"].values())
+                for key, r in rec.items() if key.startswith("fp32_"))
+        rec["checks"] = checks
+        emit(dict(phase="golden_case", case=case, card=card, **rec))
+        failures += [(case, k) for k, ok in checks.items() if not ok]
+    rec = dict(phase="golden", card=card, seconds=time.perf_counter() - t0,
+               weights_write_s=write_s, run_ddim_steps=ddim_steps,
+               jax_package_tree=str(golden["meta.jax_package_tree"]),
+               summary={case: {route: {n: e["rel_rms"] for n, e in
+                                       r["errors"].items()}
+                               for route, r in c.items()
+                               if isinstance(r, dict) and "errors" in r}
+                        for case, c in cases.items()},
+               failures=failures)
+    emit(rec)
+    if failures:
+        raise AssertionError(f"the port disagrees with the golden: {failures}")
+    return dict(rec, cases=cases)
+
+
+# ---------------------------------------------------------------------------
 # phase 6a: SD-1.5 weights through a diffusers layout on disk
 # ---------------------------------------------------------------------------
 
@@ -3427,6 +3695,10 @@ def main() -> int:
     split = reopt_split()
     torch.cuda.empty_cache()
 
+    # 5c. the port against the JAX package's golden at SD-1.5 widths
+    golden = check_golden(card)
+    torch.cuda.empty_cache()
+
     # 6a. SD-1.5 weights through a diffusers layout on disk, and
     # 6. the main path on them; the files are kept for phase 13
     weights_root = tempfile.mkdtemp(prefix="gaussctrl_sd15_")
@@ -3595,6 +3867,9 @@ def main() -> int:
         k["certify_launches"] = certify["launches"][k["name"]]
         k["mesh_launches"] = mesh["world_one"]["mesh"]["counts"][k["name"]]
         k["entry_launches"] = mesh["entry"]["launches"][k["name"]]
+        k["golden_launches"] = sum(
+            (c.get("bf16_kernels") or c["fp32_kernels"])["launches"][k["name"]]
+            for c in golden["cases"].values())
     total_s = time.perf_counter() - t_start
     emit(dict(phase="done", card=card, total_s=total_s))
     if args.out:
@@ -3602,7 +3877,7 @@ def main() -> int:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, build=build, k1=k1, k4=k4, k2=k2, k3=k3,
                            k5=k5, k6=k6, sass=sass, train=train,
-                           reopt_split=split, weights=weights,
+                           reopt_split=split, golden=golden, weights=weights,
                            main_path=mp, composed=composed, mesh=mesh,
                            masked_edit=masked, certify=certify,
                            pretrain=pretrain, splat_train=splat_train,

@@ -26,15 +26,25 @@ header length, a JSON header, then raw little-endian bytes), so no
 integer tensors (a transformers text encoder's I64 `position_ids` buffer)
 are read as they are stored, and any other float type raises.
 `save_safetensors` writes the same format.
+
+`write_seeded_sd` writes seeded random SD-1.5 weights (or those of another
+`SDConfig`) in the diffusers layout with numpy on the CPU, so that the same
+seed gives the same bytes on any machine; the JAX package's
+`load_sd_params` reads the files too.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import math
 import os
 import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
+import numpy as np
 import torch
 
 _ST_FLOATS = {"F32": torch.float32, "F16": torch.float16,
@@ -108,6 +118,108 @@ def save_safetensors(path, tensors: Dict[str, torch.Tensor]) -> int:
         for b in blobs:
             f.write(b)
     return 8 + len(head) + offset
+
+
+# where `write_seeded_sd` puts each network, relative to its root: a
+# diffusers pipeline directory `sd15/` and a ControlNet directory
+SEEDED_SD_DIR, SEEDED_CN_DIR = "sd15", "controlnet"
+SEEDED_FILES = {
+    "unet": f"{SEEDED_SD_DIR}/unet/diffusion_pytorch_model.safetensors",
+    "vae": f"{SEEDED_SD_DIR}/vae/diffusion_pytorch_model.safetensors",
+    "text": f"{SEEDED_SD_DIR}/text_encoder/model.safetensors",
+    "controlnet": f"{SEEDED_CN_DIR}/diffusion_pytorch_model.safetensors",
+}
+
+
+def _seeded_layout(cfg):
+    """{network: [(key, shape, std)]} of the diffusers state dicts of
+    `cfg`'s four networks, in the modules' order. std > 0 is a normal
+    draw, 0 a zero tensor, and -1 a tensor of ones. Linear and conv weights
+    are lecun-normal (1/sqrt(fan_in)), the ControlNet's output convs
+    included; biases are zero, norms the identity; the text encoder's token
+    embedding is N(0, 1/V) and its position embedding N(0, 0.01²), as
+    `SDModels.init_params` draws them."""
+    from torch import nn
+
+    from gaussctrl_tpu_torch.diffusion.clip import CLIPTextModel
+    from gaussctrl_tpu_torch.diffusion.controlnet import ControlNet
+    from gaussctrl_tpu_torch.diffusion.unet import UNet
+    from gaussctrl_tpu_torch.diffusion.vae import VAE
+
+    with torch.device("meta"):
+        nets = dict(unet=UNet(cfg.unet), vae=VAE(cfg.vae),
+                    text=CLIPTextModel(cfg.text),
+                    controlnet=ControlNet(cfg.controlnet))
+    layout = {}
+    for name, net in nets.items():
+        std = {}
+        for prefix, mod in net.named_modules():
+            pre = f"{prefix}." if prefix else ""
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                std[pre + "weight"] = 1.0 / math.sqrt(mod.weight[0].numel())
+                if mod.bias is not None:
+                    std[pre + "bias"] = 0.0
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+                std[pre + "weight"], std[pre + "bias"] = -1.0, 0.0
+            elif isinstance(mod, nn.Embedding):
+                std[pre + "weight"] = (
+                    1.0 / math.sqrt(mod.num_embeddings)
+                    if prefix.endswith("token_embedding") else 0.01)
+        params = net.state_dict()
+        unknown = sorted(set(params) - set(std))
+        if unknown:
+            raise KeyError(f"{name}: no seeded draw for {unknown[:8]}")
+        layout[name] = [(k, tuple(v.shape), std[k]) for k, v in params.items()]
+    return layout
+
+
+def _seeded_tensor(seed: int, name: str, key: str, shape, std: float):
+    """One fp16 tensor, drawn from its own generator keyed by the seed and
+    a CRC of `name:key`, so that no draw depends on another."""
+    if std == 0.0:
+        return np.zeros(shape, np.float16)
+    if std < 0.0:
+        return np.ones(shape, np.float16)
+    rng = np.random.default_rng([seed, zlib.crc32(f"{name}:{key}".encode())])
+    x = rng.standard_normal(shape, dtype=np.float32)
+    x *= np.float32(std)
+    return x.astype(np.float16)
+
+
+def write_seeded_sd(root: str, seed: int = 0, cfg=None,
+                    threads: int = 8) -> Dict[str, str]:
+    """Seeded random weights of `cfg` (SD-1.5 by default) as fp16
+    safetensors in the diffusers layout under `root` (`SEEDED_FILES`):
+    `sd15/{unet,vae}/diffusion_pytorch_model.safetensors`,
+    `sd15/text_encoder/model.safetensors` with the I64 `position_ids`
+    buffer a transformers file holds, and
+    `controlnet/diffusion_pytorch_model.safetensors`. Every tensor is drawn
+    with numpy on the CPU (`_seeded_layout`, `_seeded_tensor`), `threads`
+    at a time; the VAE mid-block's q/k/v biases are zero like every bias.
+    Returns {relative file: sha256 of its bytes}."""
+    from gaussctrl_tpu_torch.diffusion.config import SDConfig
+    cfg = cfg or SDConfig.sd15()
+    hashes = {}
+    with ThreadPoolExecutor(max(1, threads)) as pool:
+        for name, entries in _seeded_layout(cfg).items():
+            arrays = pool.map(lambda e: _seeded_tensor(seed, name, *e), entries)
+            tensors = {k: torch.from_numpy(a)
+                       for (k, _, _), a in zip(entries, arrays)}
+            if name == "text":
+                n = cfg.text.max_position_embeddings
+                tensors["text_model.embeddings.position_ids"] = \
+                    torch.arange(n)[None]
+            rel = SEEDED_FILES[name]
+            path = os.path.join(root, rel)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            save_safetensors(path, tensors)
+            del tensors
+            h = hashlib.sha256()
+            with open(path, "rb") as f:
+                for block in iter(lambda: f.read(1 << 24), b""):
+                    h.update(block)
+            hashes[rel] = h.hexdigest()
+    return hashes
 
 
 def load_state_dict(model_dir: str, filename_stem: str = "diffusion_pytorch_model"

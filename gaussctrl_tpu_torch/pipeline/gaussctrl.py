@@ -370,22 +370,27 @@ class GaussCtrlPipeline:
     # -- stage 3: re-optimisation -------------------------------------------
     def reoptimize(self, num_steps: Optional[int] = None,
                    train_cfg: TrainConfig = TrainConfig(), log_fn=None,
-                   ckpt_every: int = 0, ckpt_fn=None):
+                   ckpt_every: int = 0, ckpt_fn=None,
+                   backgrounds: Optional[torch.Tensor] = None):
         """`render_rate` (or `num_steps`) steps against the edits; the
-        scene is replaced by the re-optimised one. Returns the metrics."""
+        scene is replaced by the re-optimised one. `backgrounds` [steps, 3]
+        replaces the seeded random backgrounds (`splat.trainer.reoptimize`).
+        Returns the metrics."""
         assert self.edited is not None, "run edit_images() first"
         steps = num_steps if num_steps is not None else self.config.render_rate
         self.scene, metrics = reoptimize(
             self.scene, self.cameras, self.edited.float(), steps,
             seed=self.config.seed, raster_cfg=self.raster_cfg,
             train_cfg=train_cfg, log_fn=log_fn, ckpt_every=ckpt_every,
-            ckpt_fn=ckpt_fn)
+            ckpt_fn=ckpt_fn, backgrounds=backgrounds)
         return metrics
 
-    def run(self, log_fn=None, train_cfg: TrainConfig = TrainConfig()):
+    def run(self, log_fn=None, train_cfg: TrainConfig = TrainConfig(),
+            backgrounds: Optional[torch.Tensor] = None):
         """The whole edit: render_reverse → edit_images → reoptimize."""
         self.render_reverse(log_fn)
         self.edit_images(log_fn)
         step_log = None if log_fn is None else (
             lambda step, m: log_fn(f"re-opt step {step}: {m}"))
-        return self.reoptimize(train_cfg=train_cfg, log_fn=step_log)
+        return self.reoptimize(train_cfg=train_cfg, log_fn=step_log,
+                               backgrounds=backgrounds)

@@ -40,7 +40,8 @@ def test_package_imports_no_jax_or_reference_package():
               "gaussctrl_tpu_torch.cameras.stereo",
               "gaussctrl_tpu_torch.viewer.server",
               "gaussctrl_tpu_torch.core.mesh", "gaussctrl_tpu_torch.entry",
-              "gaussctrl_tpu_torch.core.orbax_read"):
+              "gaussctrl_tpu_torch.core.orbax_read",
+              "gaussctrl_tpu_torch.golden"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -180,7 +181,8 @@ def test_modules_and_chip_smoke_import_with_jax_and_safetensors_blocked(tmp_path
               "gaussctrl_tpu_torch.cameras.stereo",
               "gaussctrl_tpu_torch.viewer.server",
               "gaussctrl_tpu_torch.core.mesh", "gaussctrl_tpu_torch.entry",
-              "gaussctrl_tpu_torch.core.orbax_read"):
+              "gaussctrl_tpu_torch.core.orbax_read",
+              "gaussctrl_tpu_torch.golden"):
         assert m in mods, m
     path = tmp_path / "t.safetensors"
     code = ("import importlib, sys\n"

@@ -1,5 +1,9 @@
 """Diffusers checkpoints from disk: the port's `diffusion/weights.py` against
-the JAX package's `load_sd_params`, at SDConfig.tiny().
+the JAX package's `load_sd_params`, at two widths of the layout: SDConfig.tiny()
+(two UNet levels) and SD-1.5's four levels at SDConfig.nano() widths with
+sample size 16, built the same way in both packages, so that both loaders
+are held on `down_blocks.2-3` and `up_blocks.0-3` (no attention in down 3
+and up 0).
 
 One random parameter tree in the JAX layout (numpy, seeded; rounded to
 fp16 so that fp16 files hold it exactly) is written as synthetic diffusers
@@ -21,6 +25,8 @@ atol/rtol 1e-4 (the same tolerance as tests/test_torch_diffusion.py, for the
 same reason: two frameworks sum convolutions and matmuls in other orders).
 """
 
+import dataclasses
+import hashlib
 import json
 import struct
 
@@ -118,14 +124,29 @@ def _write_dirs(root, sds, layout):
     return str(sd_dir), str(cn_dir)
 
 
+def four_level(config_cls):
+    """SD-1.5's four levels and attention pattern at nano widths, at sample
+    size 16 (latents 16², images 128²)."""
+    return dataclasses.replace(config_cls.nano(), sample_size=16)
+
+
+WIDTHS = {"tiny": lambda cls: cls.tiny(), "four_level": four_level}
+
+
+@pytest.fixture(scope="module", params=list(WIDTHS))
+def configs(request):
+    """(JAX SDConfig, port SDConfig) of one width."""
+    return WIDTHS[request.param](JSDConfig), WIDTHS[request.param](SDConfig)
+
+
 @pytest.fixture(scope="module")
-def tree():
-    jm = jsample.SDModels.create(JSDConfig.tiny())
+def tree(configs):
+    jm = jsample.SDModels.create(configs[0])
     return jm, _fp16_exact(random_flax_params(jm, seed=3))
 
 
 @pytest.fixture(scope="module", params=["safetensors", "bin"])
-def loaded(request, tree, tmp_path_factory):
+def loaded(request, tree, configs, tmp_path_factory):
     """(JAX models, JAX params read from disk, port models read from disk,
     the directories) for one layout."""
     if request.param == "safetensors":
@@ -135,7 +156,7 @@ def loaded(request, tree, tmp_path_factory):
     sd_dir, cn_dir = _write_dirs(root, _sds(params, request.param == "safetensors"),
                                  request.param)
     jp = jax.tree_util.tree_map(jnp.asarray, load_sd_params(sd_dir, cn_dir))
-    tm = tsample.SDModels.create(SDConfig.tiny(), device="cpu")
+    tm = tsample.SDModels.create(configs[1], device="cpu")
     tw.load_sd_models(tm, sd_dir, cn_dir)
     return jm, jp, tm, (sd_dir, cn_dir)
 
@@ -157,7 +178,7 @@ def test_loaded_networks_match_jax(loaded, net):
     lat, ctx, img = _inputs(jm.cfg, 2, 11)
     if net == "text":
         ids = np.random.default_rng(0).integers(
-            0, SDConfig.tiny().text.vocab_size, size=(2, 16)).astype(np.int32)
+            0, jm.cfg.text.vocab_size, size=(2, 16)).astype(np.int32)
         _close(tsample.encode_text(tm, torch.tensor(ids)),
                jsample.encode_text(jm, jp, jnp.asarray(ids)))
     elif net == "vae_encode":
@@ -171,12 +192,12 @@ def test_loaded_networks_match_jax(loaded, net):
         assert float(np.abs(np.asarray(ref)).max()) > 0
 
 
-def test_loaded_tensors_are_the_written_ones(loaded, tree):
+def test_loaded_tensors_are_the_written_ones(loaded, tree, configs):
     """The fp16 files read back as float32 equal to the tree, bit for bit
     (the tree is fp16-exact), through the bridge's mapping."""
     _, params = tree
     _, _, tm, _ = loaded
-    ref = tsample.SDModels.create(SDConfig.tiny(), device="cpu")
+    ref = tsample.SDModels.create(configs[1], device="cpu")
     bridge.load_flax_params(ref, params)
     for a, b in zip(tm.modules(), ref.modules()):
         sa, sb = a.state_dict(), b.state_dict()
@@ -185,7 +206,7 @@ def test_loaded_tensors_are_the_written_ones(loaded, tree):
             assert torch.equal(sa[k], sb[k]), k
 
 
-def test_vae_mid_block_biases_load_and_matter(tree, tmp_path):
+def test_vae_mid_block_biases_load_and_matter(tree, configs, tmp_path):
     """Nonzero mid-block q/k/v biases (legacy names) load into the port's
     VAE, change its output, and the bridge fills them the same from the
     JAX package's converted tree (`convert_vae` keeps them as
@@ -197,7 +218,7 @@ def test_vae_mid_block_biases_load_and_matter(tree, tmp_path):
     d.mkdir()
     tw.save_safetensors(d / "diffusion_pytorch_model.safetensors",
                         {k: torch.tensor(v) for k, v in sd.items()})
-    tm = tsample.SDModels.create(SDConfig.tiny(), device="cpu")
+    tm = tsample.SDModels.create(configs[1], device="cpu")
     bridge.load_flax_params(tm, params)
     lat, _, _ = _inputs(jm.cfg, 2, 12)
     without = tsample.vae_decode(tm, _t(lat))
@@ -208,17 +229,18 @@ def test_vae_mid_block_biases_load_and_matter(tree, tmp_path):
     with_b = tsample.vae_decode(tm, _t(lat))
     assert float((with_b - without).abs().max()) > 1e-3
     from gaussctrl_tpu.diffusion.weights import convert_vae
-    via_bridge = tsample.SDModels.create(SDConfig.tiny(), device="cpu")
+    via_bridge = tsample.SDModels.create(configs[1], device="cpu")
     bridge.load_flax_params(via_bridge, dict(params, vae=convert_vae(sd)))
     for k, v in tm.vae.state_dict().items():
         assert torch.equal(v, via_bridge.vae.state_dict()[k]), k
 
 
-def test_strict_keys_name_the_culprit(tree):
+def test_strict_keys_name_the_culprit(tree, configs):
     jm, params = tree
+    cfg = configs[1]
     sds = {k: {n: torch.tensor(v) for n, v in sd.items()}
            for k, sd in _sds(params, legacy=False).items()}
-    vae = tsample.SDModels.create(SDConfig.tiny(), device="cpu").vae
+    vae = tsample.SDModels.create(cfg, device="cpu").vae
     gone = dict(sds["vae"])
     del gone["decoder.conv_out.weight"]
     with pytest.raises(KeyError, match="decoder.conv_out.weight"):
@@ -239,15 +261,15 @@ def test_strict_keys_name_the_culprit(tree):
                                 "text_projection.weight": torch.zeros(2, 2),
                                 "text_model.embeddings.position_ids":
                                     torch.arange(16)[None]})
-    tw.load_module(tsample.SDModels.create(SDConfig.tiny(), device="cpu").text,
+    tw.load_module(tsample.SDModels.create(cfg, device="cpu").text,
                    "text", text)
     with pytest.raises(KeyError, match="text_model.encoder.stray.weight"):
         tw.load_module(
-            tsample.SDModels.create(SDConfig.tiny(), device="cpu").text, "text",
+            tsample.SDModels.create(cfg, device="cpu").text, "text",
             dict(text, **{"text_model.encoder.stray.weight": torch.zeros(2)}))
 
 
-def test_one_by_one_reshapes(tree):
+def test_one_by_one_reshapes(tree, configs):
     """A [O, I] proj_in (SD-2-style Linear) loads into the 1×1 Conv2d, and
     a [O, I, 1, 1] VAE attention weight (old conv exports) into the Linear."""
     _, params = tree
@@ -255,7 +277,7 @@ def test_one_by_one_reshapes(tree):
     key = "down_blocks.0.attentions.0.proj_in.weight"
     flat = {k: torch.tensor(v) for k, v in unet.items()}
     flat[key] = flat[key][:, :, 0, 0].clone()
-    m = tsample.SDModels.create(SDConfig.tiny(), device="cpu")
+    m = tsample.SDModels.create(configs[1], device="cpu")
     tw.load_module(m.unet, "unet", flat)
     assert torch.equal(m.unet.state_dict()[key][:, :, 0, 0], flat[key])
     vae = {k: torch.tensor(v) for k, v in _vae_sd(params["vae"], False).items()}
@@ -351,7 +373,7 @@ def test_load_tokenizer_matches_jax(tmp_path):
                           CLIPTokenizer)
 
 
-def test_pipeline_from_disk_matches_sd_params(loaded, tree):
+def test_pipeline_from_disk_matches_sd_params(loaded, tree, configs):
     """A tiny GaussCtrlPipeline built from the directories through
     --pipeline.diffusion_ckpt/--pipeline.controlnet_ckpt (parsed by the
     CLI) holds the same weights as one built from the tree via
@@ -371,7 +393,7 @@ def test_pipeline_from_disk_matches_sd_params(loaded, tree):
     scene = random_scene(torch.Generator().manual_seed(0), 16, sh_degree=1)
     cams = make_cameras(np.eye(4, dtype=np.float32)[None, :3], 32, 32, 16, 16,
                         32, 32)
-    kw = dict(sd_config=SDConfig.tiny(), dtype=torch.float32, device="cpu")
+    kw = dict(sd_config=configs[1], dtype=torch.float32, device="cpu")
     disk = GaussCtrlPipeline(cfg, scene, cams, **kw)
     tree_pipe = GaussCtrlPipeline(cfg, scene, cams, sd_params=params, **kw)
     for a, b in zip(disk.models.modules(), tree_pipe.models.modules()):
@@ -383,3 +405,66 @@ def test_pipeline_from_disk_matches_sd_params(loaded, tree):
     with pytest.raises(ValueError, match="controlnet_ckpt"):
         GaussCtrlPipeline(GaussCtrlConfig(controlnet_ckpt=cn_dir), scene, cams,
                           **kw)
+
+
+def _file_sha256(path) -> str:
+    return hashlib.sha256(open(path, "rb").read()).hexdigest()
+
+
+def test_seeded_writer_is_deterministic(tmp_path):
+    """`write_seeded_sd` at the four-level width: the same seed gives the
+    same bytes (the sha256 it returns is the file's), and another seed
+    gives other bytes in every file."""
+    cfg = four_level(SDConfig)
+    first = tw.write_seeded_sd(str(tmp_path / "a"), 0, cfg, threads=2)
+    again = tw.write_seeded_sd(str(tmp_path / "b"), 0, cfg, threads=1)
+    other = tw.write_seeded_sd(str(tmp_path / "c"), 1, cfg, threads=2)
+    assert sorted(first) == sorted(tw.SEEDED_FILES.values())
+    assert first == again
+    for rel, digest in first.items():
+        assert _file_sha256(tmp_path / "a" / rel) == digest, rel
+        assert other[rel] != digest, rel
+
+
+def test_seeded_files_load_strictly_in_both_packages(tmp_path):
+    """The seeded files at the four-level width: the port loads them
+    strictly; the JAX package's `load_sd_params` gives a tree with every
+    leaf of its models' own and no other but the VAE mid-block's q/k/v
+    biases (zero in the files; the JAX VAE has no slot for them), each of
+    its shape; both read the same values, and the text encoder and the
+    VAE decoder agree at atol/rtol 1e-4."""
+    pytest.importorskip("safetensors")   # the JAX package reads with it
+    cfg, jcfg = four_level(SDConfig), four_level(JSDConfig)
+    tw.write_seeded_sd(str(tmp_path), 0, cfg, threads=2)
+    sd_dir = str(tmp_path / tw.SEEDED_SD_DIR)
+    cn_dir = str(tmp_path / tw.SEEDED_CN_DIR)
+    tm = tsample.SDModels.create(cfg, device="cpu")
+    tw.load_sd_models(tm, sd_dir, cn_dir)
+    jm = jsample.SDModels.create(jcfg)
+    want = {jax.tree_util.keystr(p): v.shape for p, v in
+            jax.tree_util.tree_leaves_with_path(
+                jax.eval_shape(jm.init_params, jax.random.PRNGKey(0)))}
+    tree = load_sd_params(sd_dir, cn_dir)
+    got = {jax.tree_util.keystr(p): v for p, v in
+           jax.tree_util.tree_leaves_with_path(tree)}
+    extra = sorted(set(got) - set(want))
+    assert extra == sorted(
+        f"['vae']['{side}']['mid_block']['attentions_0']['attn']['{n}']['bias']"
+        for side in ("decoder", "encoder") for n in ("to_k", "to_q", "to_v"))
+    assert all(not np.any(got[k]) for k in extra)
+    assert sorted(set(want) - set(got)) == []
+    for k, shape in want.items():
+        assert got[k].shape == shape, k
+    ref = tsample.SDModels.create(cfg, device="cpu")
+    bridge.load_flax_params(ref, tree)
+    for a, b in zip(tm.modules(), ref.modules()):
+        for k, v in a.state_dict().items():
+            assert torch.equal(v, b.state_dict()[k]), k
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    ids = np.random.default_rng(1).integers(
+        0, cfg.text.vocab_size, size=(2, cfg.text.max_position_embeddings)
+    ).astype(np.int32)
+    _close(tsample.encode_text(tm, torch.tensor(ids)),
+           jsample.encode_text(jm, jp, jnp.asarray(ids)))
+    lat, _, _ = _inputs(jcfg, 2, 13)
+    _close(tsample.vae_decode(tm, _t(lat)), jsample.vae_decode(jm, jp, lat))
